@@ -1,15 +1,26 @@
 """Smoke run of unidom_torch on one CUDA GPU.
 
-Builds the cloth robot-step kernel from ``unidom_torch/csrc``, holds it
-against the plain PyTorch step on the card, drives the fold_cloth3 policy
-rollout (``run_eval``) at full width through it (1024 envs, 16x32 cloth,
-50 substeps per robot step, 4 macro steps of 40 robot steps), checks the
-rollout against the plain step, and times kernel and plain versions.
+Builds the cloth robot-step kernels (forward and backward) from
+``unidom_torch/csrc``, holds each against its plain PyTorch version on the
+card, and drives the port's two paths at full width (fold_cloth3: 16x32
+cloth, 50 substeps per robot step, 40 robot steps per macro step, 1024
+envs) through them:
+  - the policy rollout (``run_eval``, 4 macro steps, 160 forward launches),
+    checked against the plain step, and the forward kernel's times;
+  - APG training (``train`` and ``build_apg``/``minimize``, episode length 3,
+    120 forward and 120 backward launches per update), with the policy
+    gradient of one update held against the plain step's in float32 and
+    float64 (on the tiny cloth of the CPU tests and at full width), the
+    training env-steps/s and peak memory, and the backward kernel's times.
+Both kernels are also held against the plain step on a cloth of more cells
+than a block has threads, at the grid's corner (``BORDER_HW``). One rollout
+and one update at 1024 envs run under ``torch.profiler``: device busy share
+and device time by kernel.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
 
-It prints one line per phase, the card's name and power limit, a JSON line
-of the kernels, and as its last line
+It prints one line per phase with its seconds, the card's name and power
+limit, a JSON line of the kernels, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It exits non-zero, without that line, when there is no CUDA device, when
 the package is not beside it, or when any phase fails.
@@ -19,6 +30,7 @@ import copy
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -51,6 +63,84 @@ PARITY_RATIO = 2.0
 # the JAX package's own Pallas kernel and XLA oracle differ by 2.8e-2 over a
 # fold_cloth3 episode (tests/test_torch_slice.py).
 TOL_REWARD_EPISODE = 0.1
+# The backward kernel, one robot step with random cotangents, and the policy
+# gradient of one update: held to the plain version in float64 per env. A
+# gradient through the full-size step is rounding-chaotic in a few envs:
+# where a particle sits at the gripper ball's edge or a grounded particle's
+# friction chatters, one rounding flips a discrete event, and that env's
+# cotangents move by 10-1000x the others' errors. Any float32 evaluation
+# shows such envs, in different places: on an H100, at fold_cloth3's 128
+# envs one env's stiffness cotangent is 1.9e-7 off in the kernel (the median
+# env 1.3e-10, the float32 plain VJP's worst 9.3e-9), while on the border
+# cloth below the float32 plain VJP has the outlier (2.8e-8, the kernel's
+# worst 2.7e-9). So for each output the gate takes the median over envs
+# of the error norm against float64: the kernel's may be at most
+# PARITY_RATIO times the float32 plain version's, plus a floor of
+# VJP_FLOOR_REL times the median env's norm; the RMS, the largest error and
+# the per-env cosine are printed beside it. The plain VJP runs on the first
+# B_VJP_PLAIN envs only: its autograd state at 1024 envs in float64 would
+# not fit.
+VJP_FLOOR_REL = 1e-6
+B_VJP_PLAIN = 128
+# The policy gradient of one update (ep_len 1, 40 robot steps) through the
+# kernels against the plain step in float32 and float64, per env, with the
+# contact-distance aux reward off so that every bit of it passes through
+# the simulator (an env whose gripper holds no cloth then has none):
+#   - on the tiny cloth of the CPU tests (N=20, 10 substeps, gripper radius
+#     0.08), where the gradient is well conditioned, held to the gate above
+#     (B_GRAD envs);
+#   - at full width (N=80, 50 substeps), B_GRAD_FULL envs for each noise
+#     seed of FULL_SEEDS. There, over 2000 substeps of lifting and dragging
+#     cloth, the float32 plain step's per-env policy gradient is itself 10%
+#     to 970% off the float64 one (median 44% over the 9 of 32 envs holding
+#     cloth, on an H100), so one env says little. Pooled over the seeds'
+#     envs holding cloth (at least MIN_HOLDING), the kernel's median
+#     relative error against float64 may be at most PARITY_RATIO times the
+#     float32 plain step's, and must be below 1, what a zero gradient
+#     scores. A zero, sign-flipped or 2x-scaled gradient is off by about 1
+#     or more in every env and fails; a smaller scale error may pass, and
+#     the backward kernel's scale is held at the main path's shapes by the
+#     one-step gate above. The float64 plain step holds ~40 GB.
+B_GRAD = 8
+B_GRAD_FULL = 32
+FULL_SEEDS = (2, 3)
+MIN_HOLDING = 12
+TINY = dict(N=20, n_substeps=10, gripper_radius=0.08)
+# Both kernels, one robot step, on a cloth in the corner of the 80x80 grid:
+# 32 x 40 = 1280 bbox cells, more than a block can have threads (1024), and
+# particles on the grid's border, where the global-grid clip keeps a
+# shortened diagonal valid so that two links of a particle land on one
+# neighbour. Held to the per-env gate above.
+BORDER_HW = (32, 40)
+B_BORDER = 128
+MAX_BLOCK_THREADS = 1024
+VJP_NAMES = ("x", "v", "primitive0", "primitive1", "action0", "action1", "stiffness", "mu")
+# Training: fold_cloth3 as the reference README trains it.
+EP_LEN = 3
+TRAIN_IT = 2  # train() runs TRAIN_IT + 1 updates
+MEMORY_LIMIT = 70e9  # bytes the 4096-env update may be predicted to take
+# The bound, the least time the card could take: the larger of the bytes each kernel
+# must move (each input read once, each output written once) over 3.35 TB/s
+# and its float32 operations over 67 TFLOP/s (no tensor cores apply).
+# Operations per particle and substep, counted from the source for a
+# grounded particle outside the grippers' balls (the common case: the cloth
+# lies on the ground, a gripper holds a few particles), a square root or a
+# division counting as one:
+#   forward: 8 links x 18 (difference, squared length, sqrt, division,
+#   coefficient, 3 multiply-adds) + gravity 3 + friction 11 + damping 9 +
+#   2 ball tests x 9 + advection 6 = 191;
+#   backward: the forward once, 191, plus the adjoint alone (the operations
+#   that take a cotangent or serve only the adjoint; what the kernel
+#   recomputes of the forward is not counted): folding in the neighbour
+#   terms and the cotangents' squared norms 15; normalize_grad, the clips
+#   and advection 36; normalize_grad and gripper 1 24; normalize_grad,
+#   gripper 0 and damping 18; dynamic friction 22; the 8 springs 8 x 32
+#   (1/|d|, r.g, the r r^T term, the stiffness sum, the particle's and the
+#   neighbour's terms) = 256; the new x cotangent 3: 191 + 374 = 565.
+FLOP_FWD = 191
+FLOP_BWD = 565
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = 67e12
 
 
 def log(msg):
@@ -78,31 +168,79 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def profile_device(what, fn, top=6):
+    """Run fn() once under torch.profiler (CPU and CUDA activities) and log
+    its host seconds, the device's busy time (the union of its kernel and
+    copy intervals) and the largest device times by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy_us, end = 0.0, -math.inf
+    for s, t in sorted(spans):
+        if t > end:
+            busy_us += t - max(s, end)
+            end = t
+    if not spans:
+        fail(f"the profiler saw no device work in {what}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    log(f"[profile] {what}: {wall:.4f} s on the host clock with the profiler on; device busy "
+        f"{busy_us / 1e6:.4f} s = {100 * busy_us / 1e6 / wall:.1f}%, "
+        f"{sum(n for _, n in by_name.values())} device operations; largest: "
+        + "; ".join(f"{name[:70]} {us / 1e3:.3f} ms x{n}" for name, (us, n) in ranked))
+
+
 def perturbed_state(env, gen):
-    """fold_cloth3 reset state with v, stiffness and mu perturbed per env,
-    gripper 0 on the cloth's first particle."""
+    """fold_cloth3 reset state, perturbed as ``perturb`` does."""
     import torch
 
-    _, s = env.reset(torch.Generator().manual_seed(0))
+    return perturb(env.reset(torch.Generator().manual_seed(0))[1], gen)
+
+
+def perturb(s, gen):
+    """``s`` with v, stiffness and mu perturbed per env, gripper 0 on the
+    cloth's first particle and gripper 1 on its last, so that both grippers
+    hold cloth and neither sits on its clip bound."""
+    import torch
+
     B = s.x.shape[0]
-    ps0 = s.primitive0.clone()
+    ps0, ps1 = s.primitive0.clone(), s.primitive1.clone()
     ps0[:, :3] = s.x[:, 0, 0]
+    ps1[:, :3] = s.x[:, -1, -1]
     return s.replace(
         v=0.05 * torch.randn(s.v.shape, generator=gen, device=s.v.device),
         primitive0=ps0,
+        primitive1=ps1,
         stiffness=s.stiffness * (1.0 + 0.2 * torch.rand(B, generator=gen, device=s.x.device)),
         mu=s.mu * (1.0 + torch.rand(B, generator=gen, device=s.x.device)),
     )
 
 
+def plain_sim(sim, dtype):
+    """Shallow copy of ``sim`` that runs the plain step in ``dtype``."""
+    out = copy.copy(sim)
+    out.rest_len = sim.rest_len.to(dtype)
+    out.nbr_valid = sim.nbr_valid.to(dtype)
+    out.step_batch = out._robot_step_plain
+    return out
+
+
 def plain_copy(env, dtype):
     """Shallow copy of ``env`` whose simulator runs the plain step in ``dtype``."""
-    sim = copy.copy(env.simulator)
-    sim.rest_len = sim.rest_len.to(dtype)
-    sim.nbr_valid = sim.nbr_valid.to(dtype)
-    sim.step_batch = sim._robot_step_plain
     out = copy.copy(env)
-    out.simulator = sim
+    out.simulator = plain_sim(env.simulator, dtype)
     out.goal = env.goal.to(dtype)
     return out
 
@@ -118,12 +256,150 @@ def errors(out, ref):
     return d.max().item(), d.square().mean().sqrt().item()
 
 
+def bound(bytes_moved, flops):
+    """Least time in ms for the work, and what bounds it."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def vjp_inputs(sim, s):
+    """The robot step's kernel inputs from the state ``s`` under
+    ``robot_action``, and random cotangents of its outputs from a numpy seed."""
+    import numpy as np
+    import torch
+
+    B = s.x.shape[0]
+    a0, a1 = sim.prepare_actions(robot_action(B, s.x.device))
+    inputs = (s.x, s.v, s.primitive0, s.primitive1, a0, a1, s.stiffness, s.mu)
+    rng = np.random.default_rng(0)
+    cot = tuple(torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(np.float32))
+                .to(s.x.device) for t in inputs[:4])
+    return inputs, cot
+
+
+def per_env_gate(what, names, kernel, plain, ref):
+    """Fail unless, for every output, the median over envs (the leading
+    axis) of the kernel's error norm against ``ref`` (float64) is at most
+    PARITY_RATIO times the float32 plain version's, plus the floor. Returns
+    the largest |kernel - plain|."""
+    import torch
+
+    worst = 0.0
+    for name, k, p, r in zip(names, kernel, plain, ref):
+        if not torch.isfinite(k).all():
+            fail(f"{what} {name}: the kernel's output is not finite")
+        kk, pp, rr = (t.double().reshape(t.shape[0], -1) for t in (k, p, r))
+        if not rr.abs().max() > 0:
+            fail(f"{what} {name}: the reference is 0 in every env, the gate would hold nothing")
+        kp = (kk - pp).abs().max().item()
+        worst = max(worst, kp)
+        e_k, e_p = (kk - rr).norm(dim=1), (pp - rr).norm(dim=1)
+        med_k, med_p = e_k.median().item(), e_p.median().item()
+        floor = VJP_FLOOR_REL * rr.norm(dim=1).median().item()
+        nonzero = rr.norm(dim=1) > 0
+        cos = torch.nn.functional.cosine_similarity(kk[nonzero], rr[nonzero], dim=1)
+        cos_txt = f"per-env cosine min {cos.min().item():.8f}; " if kk.shape[1] > 1 and len(cos) else ""
+        log(f"[{what}] {name}: |ref| max {rr.abs().max().item():.3e}; per-env error vs float64, "
+            f"median: kernel {med_k:.3e}, float32 plain {med_p:.3e} (gate {PARITY_RATIO:g} x "
+            f"{med_p:.3e} + {floor:.3e}); max: kernel {e_k.max().item():.3e}, float32 plain "
+            f"{e_p.max().item():.3e}; rms over entries: kernel {errors(kk, rr)[1]:.3e}, float32 "
+            f"plain {errors(pp, rr)[1]:.3e}; {cos_txt}kernel vs plain max {kp:.3e}")
+        if med_k > PARITY_RATIO * med_p + floor:
+            fail(f"{what} {name}: the kernel is further from float64 than the plain version")
+    return worst
+
+
+def per_env_policy_grads(env, policy, state, eps):
+    """Per-env gradients of one update's loss (``-mean`` of one macro step's
+    reward, ep_len 1) with respect to the policy's parameters: the trainer's
+    step (obs -> policy -> NormalTanh sample with noise ``eps`` -> sigmoid ->
+    ``step_diff``), its gradient with respect to the actions taken through
+    the simulator, then one pass back through the policy per env. Returns
+    the loss and, per parameter, a (B, *shape) tensor whose sum over envs is
+    the update's gradient."""
+    import torch
+
+    from unidom_torch.models.distribution import NormalTanhDistribution
+
+    params = list(policy.parameters())
+    dist = NormalTanhDistribution(event_size=env.action_size)
+    actions = torch.sigmoid(dist.sample_from_eps(policy(env.get_obs(state)), eps))
+    _, reward, _, _ = env.step_diff(actions, state)
+    loss = -reward.mean()
+    (g_actions,) = torch.autograd.grad(loss, actions, retain_graph=True)
+    per_env = [torch.autograd.grad(actions[e], params, g_actions[e], retain_graph=True)
+               for e in range(actions.shape[0])]
+    return loss.detach(), [torch.stack(g) for g in zip(*per_env)]
+
+
+def policy_grads(env, seed):
+    """One update's per-env policy gradients from ``env``'s reset, with the
+    noise drawn from numpy ``seed``: through the kernels (checking K1-bwd's
+    launches), the float32 and the float64 plain step. Returns the relative
+    norm by which the kernel's per-env gradients, summed over envs, miss the
+    trainer's own gradient (``minimize.debug["loss_grad"]``), and the three
+    gradients as (B, n_params) float64 tensors."""
+    import numpy as np
+    import torch
+
+    from unidom_torch.algorithms.apg import build_apg
+    from unidom_torch.ops.cuda.cloth_kernel import cloth_robot_step
+
+    B, dev = env.batch_size, env.device
+    init_ts, minimize, reset_batch, _ = build_apg(env, 1, device=dev)
+    ts = init_ts(0)
+    s0 = reset_batch(torch.Generator().manual_seed(0))
+    eps = torch.from_numpy(np.random.default_rng(seed).standard_normal((1, B, env.action_size))
+                           .astype(np.float32)).to(dev)
+    cloth_robot_step.bwd_launches = 0
+    _, grad, _ = minimize.debug["loss_grad"](ts, s0, eps)
+    torch.cuda.synchronize()
+    if cloth_robot_step.bwd_launches != 40:
+        fail(f"one B={B} update launched K1-bwd {cloth_robot_step.bwd_launches} times, not 40")
+
+    def flat(per_env):
+        return torch.cat([t.double().reshape(B, -1) for t in per_env], 1)
+
+    _, per_k = per_env_policy_grads(env, ts.policy, s0, eps[0])
+    whole = torch.cat([g.double().flatten() for g in grad])
+    split = ((flat(per_k).sum(0) - whole).norm() / whole.norm()).item()
+    _, per_p = per_env_policy_grads(plain_copy(env, torch.float32), ts.policy, s0, eps[0])
+    _, per_64 = per_env_policy_grads(plain_copy(env, torch.float64),
+                                     copy.deepcopy(ts.policy).double(),
+                                     cast(s0, torch.float64), eps[0].double())
+    return split, (flat(per_k), flat(per_p), flat(per_64))
+
+
+def shared_neighbours(sim):
+    """Particles of ``sim`` two of whose valid links land on one neighbour,
+    with the neighbour clamped to the bbox as the kernels clamp it."""
+    import numpy as np
+
+    from unidom_torch.engine.cloth import LINKS
+
+    H, W = sim.H, sim.W
+    valid = sim.link_valid.cpu().numpy().reshape(8, H, W) > 0
+    i, j = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    q = [np.clip(i + di, 0, H - 1) * W + np.clip(j + dj, 0, W - 1) for di, dj in LINKS]
+    shared = np.zeros((H, W), bool)
+    for a in range(8):
+        for b in range(a + 1, 8):
+            shared |= (q[a] == q[b]) & valid[a] & valid[b]
+    return int(shared.sum())
+
+
 def robot_action(B, device):
     import torch
 
     a = torch.zeros((B, 8), device=device)
     a[:, 0], a[:, 1], a[:, 3] = 0.8, 1.5, 0.0  # gripper 0 moves with suction engaged
-    a[:, 4:7] = 0.1  # gripper 1 moves, suction 0 as well
+    # gripper 1 moves with suction partly engaged: inside its ball v *= 0.25
+    # and x += d * 0.75, so every term of its adjoint is non-zero
+    a[:, 4:7], a[:, 7] = 0.1, 0.25
     return a
 
 
@@ -140,12 +416,16 @@ def main():
     if Path(unidom_torch.__file__).resolve().parent != ROOT / "unidom_torch":
         fail(f"imported unidom_torch from {unidom_torch.__file__}, not from {ROOT}")
 
+    import numpy as np
+
     from unidom_torch import make_env
-    from unidom_torch.algorithms.apg import run_eval
+    from unidom_torch.algorithms.apg import build_apg, run_eval, train
+    from unidom_torch.engine.cloth import ClothConf, ClothSimulator
+    from unidom_torch.envs.cloth_tasks import goal_path
     from unidom_torch.models.mlp import PolicyMLP
     from unidom_torch.ops.cuda import cloth_kernel
     from unidom_torch.ops.cuda._build import build_library, library_path
-    from unidom_torch.ops.cuda.cloth_kernel import cloth_robot_step
+    from unidom_torch.ops.cuda.cloth_kernel import cloth_robot_step, cloth_robot_step_vjp_plain
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -168,9 +448,10 @@ def main():
     log(f"[build] {cloth_kernel.SOURCE} -> {library_path(cloth_kernel.SOURCE).name} "
         f"in {time.perf_counter() - t0:.2f} s")
     for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if any(w in line for w in ("entry function", "registers", "spill", "smem")):
             log(f"[build] ptxas: {line.strip()}")
 
+    t_phase = time.perf_counter()
     with torch.no_grad():
         # ---- 3. kernel parity, one robot step at the main path's shapes
         env = make_env("fold_cloth3", batch_size=B_MAIN, device=dev)
@@ -208,17 +489,21 @@ def main():
                            generator=torch.Generator().manual_seed(0), device=dev)
         _, state0 = env.reset(torch.Generator().manual_seed(1))
         cloth_robot_step.launches = 0
+        cloth_robot_step.bwd_launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         final, actions, rewards = run_eval(policy, None, env, state0, deterministic=True)
         torch.cuda.synchronize()
         t_first = time.perf_counter() - t0
-        launches = cloth_robot_step.launches
+        launches, eval_bwd_launches = cloth_robot_step.launches, cloth_robot_step.bwd_launches
         expected = env.max_steps * 40
-        log(f"[slice] run_eval fold_cloth3 B={B_MAIN}: {launches} kernel launches "
-            f"(expected {expected}), first rollout {t_first:.3f} s")
+        log(f"[slice] run_eval fold_cloth3 B={B_MAIN}: {launches} K1-fwd launches "
+            f"(expected {expected}), {eval_bwd_launches} K1-bwd (expected 0), first rollout "
+            f"{t_first:.3f} s")
         if launches != expected:
             fail(f"{launches} kernel launches in the rollout, expected {expected}")
+        if eval_bwd_launches != 0:
+            fail(f"the rollout launched the backward kernel {eval_bwd_launches} times")
         if tuple(rewards.shape) != (env.max_steps, B_MAIN) or not torch.isfinite(rewards).all():
             fail(f"rewards of shape {tuple(rewards.shape)} are not all finite")
         conf = env.conf
@@ -301,20 +586,261 @@ def main():
             f"{env_steps / t_best:.1f} env-steps/s through the kernel "
             f"(best of {[round(t, 4) for t in t_roll]} s); plain step "
             f"{env_steps / t_plain_rollout:.1f} env-steps/s ({t_plain_rollout:.3f} s)")
+        profile_device(f"run_eval B={B_MAIN}",
+                       lambda: run_eval(policy, None, env, state0, deterministic=True))
 
     errs_all = max(errs.values())
     if not math.isfinite(errs_all):
         fail("non-finite kernel error")
+    log(f"[time] phases 3-5 in {time.perf_counter() - t_phase:.2f} s")
+    del out_k, out_p, out_64, env64, plain_env, state, state0, final
+    torch.cuda.empty_cache()
+
+    # ---- 6. K1-bwd parity, one robot step at the main path's shapes
+    t_phase = time.perf_counter()
+    inputs, cot = vjp_inputs(sim, perturbed_state(env, gen))
+    grads_k = cloth_kernel.cloth_robot_step_vjp(sim, inputs, cot)
+    torch.cuda.synchronize()
+    head = [t[:B_VJP_PLAIN] for t in inputs]
+    head_cot = [t[:B_VJP_PLAIN] for t in cot]
+    grads_p = cloth_robot_step_vjp_plain(sim, head, head_cot)
+    sim64 = plain_sim(sim, torch.float64)
+    grads_64 = cloth_robot_step_vjp_plain(sim64, [t.double() for t in head],
+                                          [t.double() for t in head_cot])
+    for name, g in zip(VJP_NAMES, grads_k):
+        if not torch.isfinite(g).all():
+            fail(f"K1-bwd {name} is not finite over the {B_MAIN} envs")
+    bwd_err = per_env_gate("bwd-parity", VJP_NAMES, [g[:B_VJP_PLAIN] for g in grads_k],
+                              grads_p, grads_64)
+    log(f"[bwd-parity] kernel on {B_MAIN} envs, held on the first {B_VJP_PLAIN}: "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    del grads_k, grads_p, grads_64, sim64
+
+    # ---- 6b. both kernels on the border cloth (see BORDER_HW)
+    t_phase = time.perf_counter()
+    mask = np.zeros((80, 80), np.float32)
+    mask[:BORDER_HW[0], :BORDER_HW[1]] = 1.0
+    bsim = ClothSimulator(ClothConf(), B_BORDER, mask, device=dev)
+    shared = shared_neighbours(bsim)
+    if bsim.H * bsim.W <= MAX_BLOCK_THREADS or not shared:
+        fail(f"the border cloth ({bsim.H} x {bsim.W}, {shared} particles with a shared "
+             "neighbour) does not test what it should")
+    bstate = perturb(bsim.reset(), gen)
+    baction = robot_action(B_BORDER, dev)
+    with torch.no_grad():
+        outs = [(o.x, o.v, o.primitive0, o.primitive1) for o in (
+            cloth_robot_step(bsim, bstate, baction), bsim._robot_step_plain(bstate, baction),
+            plain_sim(bsim, torch.float64)._robot_step_plain(cast(bstate, torch.float64),
+                                                             baction.double()))]
+    per_env_gate("border-fwd", VJP_NAMES[:4], *outs)
+    b_in, b_cot = vjp_inputs(bsim, bstate)
+    per_env_gate(
+        "border-bwd", VJP_NAMES, cloth_kernel.cloth_robot_step_vjp(bsim, b_in, b_cot),
+        cloth_robot_step_vjp_plain(bsim, b_in, b_cot),
+        cloth_robot_step_vjp_plain(plain_sim(bsim, torch.float64), [t.double() for t in b_in],
+                                   [t.double() for t in b_cot]))
+    log(f"[border] {bsim.H} x {bsim.W} = {bsim.H * bsim.W} bbox cells at the grid's corner, "
+        f"{shared} particles with two links to one neighbour, B={B_BORDER}: both kernels "
+        f"within the gate; {time.perf_counter() - t_phase:.2f} s")
+    del bsim, bstate, b_in, b_cot, outs
+    torch.cuda.empty_cache()
+
+    # ---- 7. the main path: APG training of fold_cloth3 through both kernels
+    t_phase = time.perf_counter()
+    logdir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(logdir, ignore_errors=True)
+    eval_its = len(range(0, TRAIN_IT + 1, TRAIN_IT))
+    expect_bwd = (TRAIN_IT + 1) * EP_LEN * 40
+    expect_fwd = expect_bwd + eval_its * 2 * env.max_steps * 40  # sampled and mode evals
+    mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cloth_robot_step.launches = 0
+    cloth_robot_step.bwd_launches = 0
+    ts, history = train("fold_cloth3", EP_LEN, B_MAIN, max_it=TRAIN_IT, eval_freq=TRAIN_IT,
+                        num_eval_envs=20, logdir=str(logdir), device="cuda")
+    torch.cuda.synchronize()
+    train_launches = {"fwd": cloth_robot_step.launches, "bwd": cloth_robot_step.bwd_launches}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[train] train(fold_cloth3, ep_len {EP_LEN}, {B_MAIN} envs, {TRAIN_IT + 1} updates, "
+        f"{eval_its} evals of 20 envs): K1-fwd {train_launches['fwd']} launches (expected "
+        f"{expect_fwd}), K1-bwd {train_launches['bwd']} (expected {expect_bwd}); peak memory "
+        f"{peak / 1e9:.3f} GB ({(peak - mem_before) / 1e9:.3f} GB above the "
+        f"{mem_before / 1e9:.3f} GB held before)")
+    if train_launches != {"fwd": expect_fwd, "bwd": expect_bwd}:
+        fail(f"training launched the kernels {train_launches} times")
+    for rec in history:
+        log(f"[train] {json.dumps(rec)}")
+        if not all(math.isfinite(rec[k]) for k in ("train_reward", "grad_norm", "sps")):
+            fail(f"iteration {rec['it']}: non-finite metrics")
+        if rec["grad_norm"] <= 0:
+            fail(f"iteration {rec['it']}: zero gradient")
+    first = torch.load(logdir / "apg_fold_cloth3_0.pt", map_location=dev, weights_only=True)
+    moved = max((p - first["policy"][k]).abs().max().item()
+                for k, p in ts.policy.state_dict().items())
+    train_sps = max(rec["sps"] for rec in history[1:])
+    log(f"[train] parameters moved up to {moved:.3e}; {train_sps:.1f} training env-steps/s "
+        f"at {B_MAIN} envs (best of iterations 1-{TRAIN_IT}); {time.perf_counter() - t_phase:.2f} s")
+    if not moved > 0:
+        fail("training left the parameters where they were")
+    del ts, history
+    torch.cuda.empty_cache()
+
+    # ---- 8. one minimize per batch width: launches, metrics and env-steps/s
+    t_phase = time.perf_counter()
+    minimize_sps = {}
+    for B in (B_MAIN, B_WIDE):
+        if B == B_WIDE and 4 * (peak - mem_before) > MEMORY_LIMIT:
+            log(f"[minimize] B={B} skipped: 4x the {B_MAIN}-env update's "
+                f"{(peak - mem_before) / 1e9:.2f} GB exceeds {MEMORY_LIMIT / 1e9:g} GB")
+            continue
+        tenv = make_env("fold_cloth3", batch_size=B, aux_reward=True, device=dev)
+        init_ts, minimize, reset_batch, _ = build_apg(tenv, EP_LEN, device=dev)
+        ts = init_ts(0)
+        first_state = reset_batch(torch.Generator().manual_seed(0))
+        params0 = [p.detach().clone() for p in ts.policy.parameters()]
+        seconds = []
+        for rep in range(2):
+            cloth_robot_step.launches = 0
+            cloth_robot_step.bwd_launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts, m = minimize(ts, first_state)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            counts = (cloth_robot_step.launches, cloth_robot_step.bwd_launches)
+            if counts != (EP_LEN * 40, EP_LEN * 40):
+                fail(f"one minimize at B={B} launched the kernels {counts} times")
+            m = {k: v.item() for k, v in m.items()}
+            if not all(math.isfinite(v) for v in m.values()) or m["grad_norm"] <= 0:
+                fail(f"minimize at B={B}: metrics {m}")
+        moved = max((p - q).abs().max().item() for p, q in zip(ts.policy.parameters(), params0))
+        if not moved > 0:
+            fail(f"minimize at B={B} left the parameters where they were")
+        minimize_sps[B] = EP_LEN * B / seconds[1]
+        log(f"[minimize] B={B}: K1-fwd/K1-bwd launches {counts} per update; metrics {m}; "
+            f"parameters moved up to {moved:.3e}; {[round(t, 4) for t in seconds]} s per "
+            f"update, {minimize_sps[B]:.1f} env-steps/s (second update); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        if B == B_MAIN:
+            profile_device(f"minimize B={B}", lambda: minimize(ts, first_state))
+        del tenv, ts, first_state, params0
+        torch.cuda.empty_cache()
+    log(f"[minimize] {time.perf_counter() - t_phase:.2f} s")
+
+    # ---- 9. the policy gradient of one update through the kernels, against
+    # the plain step in float32 and float64: tiny cloth, then full width
+    t_phase = time.perf_counter()
+    tiny = ClothConf(task="fold_cloth3", goal_path=goal_path("fold_cloth3"), **TINY)
+    _, (k, p, r) = policy_grads(make_env("fold_cloth3", batch_size=B_GRAD, conf=tiny,
+                                         aux_reward=False, device=dev), 1)
+    grad_err = per_env_gate(f"policy-grad tiny B={B_GRAD}", ["policy"], [k], [p], [r])
+    full_env = make_env("fold_cloth3", batch_size=B_GRAD_FULL, aux_reward=False, device=dev)
+    rel_k, rel_p, cos_k, cos_p = [], [], [], []
+    for seed in FULL_SEEDS:
+        split, (k, p, r) = policy_grads(full_env, seed)
+        active = r.norm(dim=1) > 0
+        rel_k.append(((k - r).norm(dim=1) / r.norm(dim=1))[active])
+        rel_p.append(((p - r).norm(dim=1) / r.norm(dim=1))[active])
+        cos_k.append(torch.nn.functional.cosine_similarity(k[active], r[active], dim=1))
+        cos_p.append(torch.nn.functional.cosine_similarity(p[active], r[active], dim=1))
+        log(f"[policy-grad] full width B={B_GRAD_FULL}, noise seed {seed}: {int(active.sum())} "
+            f"envs hold cloth; per-env gradient split vs the trainer's: relative norm "
+            f"{split:.3e}; relative error vs float64, kernel "
+            f"{' '.join(f'{e:.2e}' for e in rel_k[-1].tolist())}, float32 plain "
+            f"{' '.join(f'{e:.2e}' for e in rel_p[-1].tolist())}; kernel vs plain max "
+            f"{(k - p).abs().max().item():.3e}")
+        if not split < 1e-4:
+            fail("the per-env gradients do not sum to the trainer's gradient")
+        del k, p, r
+        torch.cuda.empty_cache()
+    rel_k, rel_p, cos_k, cos_p = (torch.cat(t) for t in (rel_k, rel_p, cos_k, cos_p))
+    med_k, med_p = rel_k.median().item(), rel_p.median().item()
+    log(f"[policy-grad] full width, {len(rel_k)} envs holding cloth over seeds {FULL_SEEDS}: "
+        f"median relative error vs float64, kernel {med_k:.3e}, float32 plain {med_p:.3e} "
+        f"(gate {PARITY_RATIO:g} x {med_p:.3e}, and below 1); median per-env cosine, kernel "
+        f"{cos_k.median().item():.6f}, float32 plain {cos_p.median().item():.6f}; "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    if len(rel_k) < MIN_HOLDING:
+        fail(f"fewer than {MIN_HOLDING} envs hold cloth: the full-width gradient gate would "
+             "hold too little")
+    if med_k > PARITY_RATIO * med_p or not med_k < 1.0:
+        fail("full-width policy gradient: the kernel is further from float64 than the plain step")
+
+    # ---- 10. K1-bwd times, and the bounds of both kernels
+    t_phase = time.perf_counter()
+    bwd_times, bounds = {}, {}
+    for B in (B_MAIN, B_WIDE):
+        wenv = env if B == B_MAIN else make_env("fold_cloth3", batch_size=B, device=dev)
+        wsim = wenv.simulator
+        w_in, w_cot = vjp_inputs(wsim, perturbed_state(wenv, gen))
+        w_out = cloth_kernel.cloth_robot_step_vjp(wsim, w_in, w_cot)
+        links = (wsim.link_rest, wsim.link_valid)
+        cells = B * wsim.H * wsim.W * wsim.conf.n_substeps
+        bounds[B] = {
+            "fwd": bound(nbytes(w_in) + nbytes(links) + nbytes(w_in[:4]), FLOP_FWD * cells),
+            "bwd": bound(nbytes(w_in) + nbytes(links) + nbytes(w_cot) + nbytes(w_out),
+                         FLOP_BWD * cells),
+        }
+        plain_fits = B == B_MAIN
+        if not plain_fits:
+            plain_note = (f"plain VJP not run: ~{4 * plain_vjp_bytes / 1e9:.0f} GB of autograd "
+                          f"state (4x its peak at B={B_MAIN})")
+        rounds = []
+        for order in (("plain", "kernel"), ("kernel", "plain")):
+            r = {}
+            for which in order:
+                if which == "kernel":
+                    r[which] = cuda_ms(
+                        lambda: cloth_kernel.cloth_robot_step_vjp(wsim, w_in, w_cot), reps=10)
+                elif plain_fits:
+                    torch.cuda.reset_peak_memory_stats()
+                    before = torch.cuda.memory_allocated()
+                    r[which] = cuda_ms(lambda: cloth_robot_step_vjp_plain(wsim, w_in, w_cot),
+                                       reps=2, warmup=1)
+                    plain_vjp_bytes = torch.cuda.max_memory_allocated() - before
+                    plain_note = (f"plain VJP peak {plain_vjp_bytes / 1e9:.2f} GB above the "
+                                  "inputs")
+            rounds.append(r)
+        bwd_times[B] = {k: sum(r[k] for r in rounds) / len(rounds) for k in rounds[0]}
+        plain_txt = (f"plain {bwd_times[B]['plain']:.4f} ms, speedup "
+                     f"{bwd_times[B]['plain'] / bwd_times[B]['kernel']:.1f}x; "
+                     if plain_fits else "")
+        log(f"[time] one robot step's VJP, B={B}: K1-bwd {bwd_times[B]['kernel']:.4f} ms, "
+            f"{plain_txt}{plain_note} (rounds {rounds}); bound K1-fwd "
+            f"{bounds[B]['fwd'][0]:.4f} ms ({bounds[B]['fwd'][1]}), K1-bwd "
+            f"{bounds[B]['bwd'][0]:.4f} ms ({bounds[B]['bwd'][1]})")
+        del wenv, wsim, w_in, w_cot, w_out
+        torch.cuda.empty_cache()
+    log(f"[time] phase 10 in {time.perf_counter() - t_phase:.2f} s")
+
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "cloth_robot_step_fwd",
         "route": "cuda",
         "source": "unidom_torch/csrc/cloth_robot_step.cu",
         "replaces": "unidom_tpu/ops/pallas/cloth_kernel.py:331",
-        "launches": launches,
+        "launches": train_launches["fwd"],
+        "launches_by_path": {"run_eval": launches, "train": train_launches["fwd"]},
         "max_abs_err": errs_all,
         "ms": times[B_MAIN]["kernel"],
         "plain_ms": times[B_MAIN]["plain"],
+        "bound_ms": bounds[B_MAIN]["fwd"][0],
+        "bound_by": bounds[B_MAIN]["fwd"][1],
+        "library_ms": None,
+    }, {
+        "name": "cloth_robot_step_bwd",
+        "route": "cuda",
+        "source": "unidom_torch/csrc/cloth_robot_step.cu",
+        "replaces": "unidom_tpu/ops/pallas/cloth_kernel.py:354",
+        "launches": train_launches["bwd"],
+        "launches_by_path": {"run_eval": eval_bwd_launches, "train": train_launches["bwd"]},
+        "max_abs_err": max(bwd_err, grad_err),
+        "ms": bwd_times[B_MAIN]["kernel"],
+        "plain_ms": bwd_times[B_MAIN]["plain"],
+        "bound_ms": bounds[B_MAIN]["bwd"][0],
+        "bound_by": bounds[B_MAIN]["bwd"][1],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

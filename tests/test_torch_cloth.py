@@ -1,6 +1,7 @@
 """The port's plain cloth robot step against the JAX package: the XLA oracle
 (``ClothSimulator.step_batch``) and the Pallas kernel in interpret mode,
-forward and gradients, plus ``normalize_grad``.
+forward, gradients and the robot step's VJP (the backward kernel's plain
+version), plus ``normalize_grad``.
 
 Inputs are made with numpy from a seed and handed to both sides."""
 
@@ -15,7 +16,12 @@ from unidom_tpu.engine.cloth import ClothSimulator as JaxClothSimulator
 from unidom_tpu.ops.gradops import normalize_grad as jax_normalize_grad
 from unidom_tpu.ops.pallas.cloth_kernel import build_cloth_robot_step_kernel
 from unidom_torch.engine.cloth import ClothConf, ClothSimulator, ClothState
-from unidom_torch.ops.cuda.cloth_kernel import _ClothRobotStepFn, cloth_robot_step
+from unidom_torch.ops.cuda.cloth_kernel import (
+    _check_cotangents,
+    cloth_robot_step,
+    cloth_robot_step_vjp,
+    cloth_robot_step_vjp_plain,
+)
 from unidom_torch.ops.gradops import normalize_grad
 
 torch.set_num_threads(1)
@@ -75,7 +81,8 @@ def setup():
     action[:, :3] += 0.05 * rng.standard_normal((B, 3)).astype(np.float32)
 
     tsim = ClothSimulator(
-        ClothConf(N=20, stiffness=900.0, n_substeps=10, gripper_radius=0.08), B, _mask()
+        ClothConf(N=20, stiffness=900.0, n_substeps=10, gripper_radius=0.08), B, _mask(),
+        device="cpu",
     )
     tstate = _to_torch(jstate)
     kernel_step = build_cloth_robot_step_kernel(jsim, interpret=True)
@@ -112,9 +119,18 @@ def test_two_steps_match_oracle(setup):
 
 def test_cpu_step_launches_no_kernel(setup):
     *_, tsim, tstate, action = setup
-    before = cloth_robot_step.launches
-    tsim.step_batch(tstate, torch.from_numpy(action))
-    assert cloth_robot_step.launches == before
+    before = cloth_robot_step.launches, cloth_robot_step.bwd_launches
+    x = tstate.x.clone().requires_grad_()
+    out = tsim.step_batch(tstate.replace(x=x), torch.from_numpy(action))
+    out.x.sum().backward()  # torch autograd through the plain step
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    a0, a1 = tsim.prepare_actions(torch.from_numpy(action))
+    inputs = (tstate.x, tstate.v, tstate.primitive0, tstate.primitive1, a0, a1,
+              tstate.stiffness, tstate.mu)
+    cot = [torch.ones_like(t) for t in inputs[:4]]
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        cloth_robot_step_vjp(tsim, inputs, cot)
+    assert (cloth_robot_step.launches, cloth_robot_step.bwd_launches) == before
 
 
 def test_kernel_wrapper_raises_off_cpu_and_cuda(setup):
@@ -122,18 +138,26 @@ def test_kernel_wrapper_raises_off_cpu_and_cuda(setup):
     meta = tstate.replace(x=tstate.x.to("meta"))
     with pytest.raises(ValueError, match="CPU or CUDA"):
         cloth_robot_step(tsim, meta, torch.from_numpy(action))
-    with pytest.raises(NotImplementedError):
-        _ClothRobotStepFn.backward(None, None)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        cloth_robot_step_vjp(tsim, (meta.x,), ())
+    # the backward kernel's argument checks, on the cotangents of (x, v, ps0, ps1)
+    good = [torch.zeros_like(t) for t in (tstate.x, tstate.v, tstate.primitive0, tstate.primitive1)]
+    _check_cotangents(tsim, tstate.x, good)
+    with pytest.raises(ValueError, match="cotangent of v has shape"):
+        _check_cotangents(tsim, tstate.x, [good[0], good[1][:, :-1], *good[2:]])
+    with pytest.raises(TypeError, match="cotangent of primitive1 has dtype"):
+        _check_cotangents(tsim, tstate.x, [*good[:3], good[3].double()])
 
 
 @pytest.fixture(scope="module")
 def grads(setup):
     jsim, jstate, _, tsim, tstate, action = setup
-    wx, wv = 1.7, 0.3  # loss: sum(x) * wx + sum(v) * wv + sum(primitive0)
+    wx, wv, wp = 1.7, 0.3, 0.6  # loss: sum(x) wx + sum(v) wv + sum(ps0) + sum(ps1) wp
 
     def jax_loss(action, state):
         s, _ = jsim.step_batch(state, action)
-        return jnp.sum(s.x * wx) + jnp.sum(s.v * wv) + jnp.sum(s.primitive0)
+        return (jnp.sum(s.x * wx) + jnp.sum(s.v * wv) + jnp.sum(s.primitive0)
+                + jnp.sum(s.primitive1 * wp))
 
     g_action, g_state = jax.grad(jax_loss, argnums=(0, 1), allow_int=True)(
         jnp.asarray(action), jstate
@@ -141,6 +165,7 @@ def grads(setup):
     jax_grads = {
         "action": g_action, "x": g_state.x, "v": g_state.v,
         "stiffness": g_state.stiffness, "mu": g_state.mu,
+        "primitive0": g_state.primitive0, "primitive1": g_state.primitive1,
     }
 
     leaves = {
@@ -149,16 +174,20 @@ def grads(setup):
         "v": tstate.v.clone().requires_grad_(),
         "stiffness": tstate.stiffness.clone().requires_grad_(),
         "mu": tstate.mu.clone().requires_grad_(),
+        "primitive0": tstate.primitive0.clone().requires_grad_(),
+        "primitive1": tstate.primitive1.clone().requires_grad_(),
     }
     state = tstate.replace(x=leaves["x"], v=leaves["v"], stiffness=leaves["stiffness"],
-                           mu=leaves["mu"])
+                           mu=leaves["mu"], primitive0=leaves["primitive0"],
+                           primitive1=leaves["primitive1"])
     s = tsim.step_batch(state, leaves["action"])
-    (torch.sum(s.x * wx) + torch.sum(s.v * wv) + torch.sum(s.primitive0)).backward()
+    (torch.sum(s.x * wx) + torch.sum(s.v * wv) + torch.sum(s.primitive0)
+     + torch.sum(s.primitive1 * wp)).backward()
     torch_grads = {k: t.grad.numpy() for k, t in leaves.items()}
     return torch_grads, jax_grads
 
 
-@pytest.mark.parametrize("wrt", ["action", "x", "v", "stiffness", "mu"])
+@pytest.mark.parametrize("wrt", ["action", "x", "v", "stiffness", "mu", "primitive0", "primitive1"])
 def test_plain_step_grad_matches_oracle(grads, wrt):
     torch_grads, jax_grads = grads
     ref = np.asarray(jax_grads[wrt])
@@ -166,6 +195,71 @@ def test_plain_step_grad_matches_oracle(grads, wrt):
     assert np.any(ref != 0.0)
     atol = GRAD_ATOL_OF_MAX * np.abs(ref).max()
     np.testing.assert_allclose(torch_grads[wrt], ref, rtol=GRAD_RTOL, atol=atol)
+
+
+VJP_OUTPUTS = ["x", "v", "primitive0", "primitive1", "action0", "action1", "stiffness", "mu"]
+
+
+@pytest.fixture(scope="module")
+def vjps(setup):
+    """The robot step's VJP from the same inputs and random cotangents: the
+    port's plain version, ``jax.vjp`` of the XLA oracle's substeps and of the
+    Pallas kernel (its own ``bwd_call``, in interpret mode)."""
+    jsim, jstate, kernel_step, tsim, tstate, action = setup
+    rng = np.random.default_rng(1)
+    cot = [rng.standard_normal(t.shape).astype(np.float32)
+           for t in (tstate.x, tstate.v, tstate.primitive0, tstate.primitive1)]
+    a0, a1 = tsim.prepare_actions(torch.from_numpy(action))
+    inputs = (tstate.x, tstate.v, tstate.primitive0, tstate.primitive1, a0, a1,
+              tstate.stiffness, tstate.mu)
+    plain = cloth_robot_step_vjp_plain(tsim, inputs, [torch.from_numpy(c) for c in cot])
+    plain = {n: g.numpy() for n, g in zip(VJP_OUTPUTS, plain)}
+
+    def xla_substeps(*args):
+        x, v, ps0, ps1, a0, a1, k, mu = args
+        state = jstate._replace(x=x, v=v, primitive0=ps0, primitive1=ps1, action0=a0,
+                                action1=a1, stiffness=k, mu=mu)
+
+        def one(s):
+            for _ in range(jsim.conf.n_substeps):
+                s = jsim._substep(s)
+            return s
+
+        out = jax.vmap(one)(state)
+        return out.x, out.v, out.primitive0, out.primitive1
+
+    _, vjp = jax.vjp(xla_substeps, *[jnp.asarray(t.numpy()) for t in inputs])
+    xla = dict(zip(VJP_OUTPUTS, (np.asarray(g) for g in vjp(tuple(jnp.asarray(c) for c in cot)))))
+
+    packed, _ = kernel_step._pack(jstate, jnp.asarray(action))
+    _, vjp = jax.vjp(kernel_step._core, packed)
+    gx, gv = cot[0].reshape(B, -1, 3), cot[1].reshape(B, -1, 3)
+    soa = tuple(jnp.asarray(g[:, :, c]) for g in (gx, gv) for c in range(3))
+    (g,) = vjp(soa + (jnp.asarray(cot[2]), jnp.asarray(cot[3])))
+    g = [np.asarray(t) for t in g]
+    pallas = {
+        "x": np.stack(g[0:3], -1).reshape(tstate.x.shape),
+        "v": np.stack(g[3:6], -1).reshape(tstate.v.shape),
+        "primitive0": g[6], "primitive1": g[7], "action0": g[8], "action1": g[9],
+        "stiffness": g[10][:, 0], "mu": g[11][:, 0],
+    }
+    return plain, {"xla_oracle": xla, "pallas_interpret": pallas}
+
+
+@pytest.mark.parametrize("reference", ["xla_oracle", "pallas_interpret"])
+@pytest.mark.parametrize("output", VJP_OUTPUTS)
+def test_vjp_plain_matches_jax(vjps, reference, output):
+    """Every cotangent of the backward kernel's plain version against JAX,
+    with the gradient tolerances above (the per-substep renormalisation makes
+    every cotangent of x and v a unit vector divided by the particle count)."""
+    plain, refs = vjps
+    ref, out = refs[reference][output], plain[output]
+    assert out.shape == ref.shape
+    assert np.all(np.isfinite(out))
+    if output != "action1":  # gripper 1 sits above the clip: its action gets nothing
+        assert np.any(ref != 0.0)
+    atol = GRAD_ATOL_OF_MAX * max(np.abs(ref).max(), 1e-30)
+    np.testing.assert_allclose(out, ref, rtol=GRAD_RTOL, atol=atol)
 
 
 @pytest.mark.parametrize("batched", [False, True])

@@ -38,7 +38,7 @@ def _to_torch(jstate):
 
 
 def test_fold_cloth3_full_width_contract():
-    env = make_env("fold_cloth3", batch_size=2)
+    env = make_env("fold_cloth3", batch_size=2, device="cpu")
     assert env.n_particles == 512
     assert env.observation_size == 1544
     assert (env.simulator.H, env.simulator.W) == (16, 32)
@@ -50,7 +50,7 @@ def test_fold_cloth3_full_width_contract():
 def envs3():
     """B=3 JAX and torch envs in the same perturbed state."""
     jenv = JaxFoldCloth3Env(3, conf=JaxClothConf(**SMALL))
-    tenv = FoldCloth3Env(3, conf=ClothConf(**SMALL))
+    tenv = FoldCloth3Env(3, conf=ClothConf(**SMALL), device="cpu")
     rng = np.random.default_rng(7)
     _, jstate = jenv.reset(jax.random.PRNGKey(0))
     x = np.asarray(jstate.x) + 0.01 * rng.standard_normal(jstate.x.shape).astype(np.float32)
@@ -80,7 +80,7 @@ def test_get_obs_matches_jax(envs3):
 
 def test_reset_with_the_same_shift_gives_the_same_state():
     jenv = JaxFoldCloth3Env(2, conf=JaxClothConf(**SMALL))
-    tenv = FoldCloth3Env(2, conf=ClothConf(**SMALL))
+    tenv = FoldCloth3Env(2, conf=ClothConf(**SMALL), device="cpu")
     key = jax.random.PRNGKey(4)
     jobs, jstate = jenv.reset(key)
     shift_key, _ = jax.random.split(key)
@@ -149,7 +149,7 @@ def test_chamfer_chunked_equals_dense():
 def flax_policy():
     model = make_policy_model(12, 1544)
     params = model.init(jax.random.PRNGKey(0))
-    return model, params, policy_from_jax(jax.device_get(params))
+    return model, params, policy_from_jax(jax.device_get(params), device="cpu")
 
 
 def test_policy_from_jax_round_trips(flax_policy):
@@ -164,7 +164,7 @@ def test_policy_from_jax_round_trips(flax_policy):
 def test_policy_init_matches_flax_dense_init(flax_policy):
     """LeCun-normal kernels truncated at 2 std, zero biases, as flax draws them."""
     _, params, _ = flax_policy
-    policy = PolicyMLP(1544, 12, generator=torch.Generator().manual_seed(0))
+    policy = PolicyMLP(1544, 12, generator=torch.Generator().manual_seed(0), device="cpu")
     for i, layer in enumerate(policy.layers):
         ref = np.asarray(params["params"][f"dense_{i}"]["kernel"])
         w = layer.weight.detach().numpy()
@@ -197,5 +197,5 @@ def test_normalizer_from_jax_matches_jax_normalize():
     obs = rng.standard_normal((3, 8)).astype(np.float32)
     ref = jax_normalize(JaxNormalizerParams(jnp.asarray(count), jnp.asarray(mean),
                                             jnp.asarray(m2)), jnp.asarray(obs))
-    out = normalize(normalizer_from_jax(count, mean, m2), torch.from_numpy(obs))
+    out = normalize(normalizer_from_jax(count, mean, m2, device="cpu"), torch.from_numpy(obs))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)

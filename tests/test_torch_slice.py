@@ -50,13 +50,13 @@ def _to_torch(jstate):
 @pytest.fixture(scope="module")
 def pair():
     jenv = JaxFoldCloth3Env(B, conf=JaxClothConf(**SMALL))
-    tenv = FoldCloth3Env(B, conf=ClothConf(**SMALL))
+    tenv = FoldCloth3Env(B, conf=ClothConf(**SMALL), device="cpu")
     key = jax.random.PRNGKey(1)
     _, jstate = jenv.reset(key)
     _, tstate = tenv.reset_from_shift(_jax_reset_shift(key))
     model = make_policy_model(12, jenv.observation_size)
     params = model.init(jax.random.PRNGKey(0))
-    policy = policy_from_jax(jax.device_get(params))
+    policy = policy_from_jax(jax.device_get(params), device="cpu")
     return jenv, jstate, tenv, tstate, model, params, policy
 
 

@@ -10,8 +10,8 @@ bounding box, (B, H, W, 3).
 for the whole batch. For CPU tensors it runs the plain PyTorch step
 (``_robot_step_plain``), which mirrors the JAX oracle ``_substep`` operator
 for operator, so torch autograd through it gives the oracle's gradients. For
-CUDA tensors it launches the hand-written robot-step kernel
-(``unidom_torch/ops/cuda/cloth_kernel.py``) or raises.
+CUDA tensors it launches the hand-written robot-step kernels, forward and
+backward (``unidom_torch/ops/cuda/cloth_kernel.py``), or raises.
 """
 
 import dataclasses
@@ -90,9 +90,10 @@ def _edge_pad(x):
 
 class ClothSimulator:
     """Owns the spring topology (host numpy, copied to ``device`` once) and
-    the batched step and reset."""
+    the batched step and reset. ``device`` defaults to the GPU; pass
+    ``device="cpu"`` for the plain step on the host."""
 
-    def __init__(self, conf: ClothConf, batch_size: int, cloth_mask, device="cpu"):
+    def __init__(self, conf: ClothConf, batch_size: int, cloth_mask, device="cuda"):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self.conf = conf
@@ -131,11 +132,9 @@ class ClothSimulator:
         rest = np.clip(rest, 1e-12, np.inf).astype(np.float32)  # (H, W, 8)
         self.rest_len = torch.as_tensor(rest, device=self.device)
         self.nbr_valid = torch.as_tensor(valid, device=self.device)
-        # (8, HW) per-link constants for the kernel: valid/rest and valid
+        # (8, HW) per-link constants for the kernels: rest and valid
         HW = self.H * self.W
-        self.link_inv_rest = torch.as_tensor(
-            (valid / rest).reshape(HW, 8).T.copy(), device=self.device
-        )
+        self.link_rest = torch.as_tensor(rest.reshape(HW, 8).T.copy(), device=self.device)
         self.link_valid = torch.as_tensor(valid.reshape(HW, 8).T.copy(), device=self.device)
         self.damping_factor = float(np.exp(np.float32(-conf.damping * conf.dt)))
 
@@ -256,13 +255,16 @@ class ClothSimulator:
         a1 = torch.cat([_clip(action[:, 4:7], -2.0, 2.0) / n, action[:, 7:8]], 1)
         return a0, a1
 
-    def _robot_step_plain(self, state: ClothState, action):
-        """One robot step in plain PyTorch: ``n_substeps`` substeps."""
-        action0, action1 = self.prepare_actions(action)
-        state = state.replace(action0=action0, action1=action1)
+    def _run_substeps(self, state: ClothState):
+        """``n_substeps`` plain substeps under the state's per-substep actions."""
         for _ in range(self.conf.n_substeps):
             state = self._substep(state)
         return state
+
+    def _robot_step_plain(self, state: ClothState, action):
+        """One robot step in plain PyTorch: ``n_substeps`` substeps."""
+        action0, action1 = self.prepare_actions(action)
+        return self._run_substeps(state.replace(action0=action0, action1=action1))
 
     def step_batch(self, state: ClothState, action):
         """One robot step for the batch: plain on CPU, the CUDA kernel on CUDA."""

@@ -19,12 +19,14 @@ from unidom_torch.ops.metrics import chamfer
 
 
 class ClothEnv:
-    """Batched cloth environment with particle observations."""
+    """Batched cloth environment with particle observations, on ``device``
+    (the GPU unless the caller asks for the CPU)."""
 
     action_squash = "sigmoid"  # the trainer squashes sampled actions with a sigmoid
+    reset_mode = "reset"  # the trainer draws first states with ``reset``
 
     def __init__(self, conf: ClothConf, batch_size: int, max_steps: int,
-                 aux_reward: bool = False, device="cpu"):
+                 aux_reward: bool = False, device="cuda"):
         self.device = torch.device(device)
         self.simulator = ClothSimulator(conf, batch_size, self.create_cloth_mask(conf), device)
         self.conf = conf

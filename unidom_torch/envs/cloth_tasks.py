@@ -28,7 +28,7 @@ def _rect_mask(N, size):
 
 class FoldCloth1Env(ClothEnv):
     def __init__(self, batch_size, conf=None, aux_reward=False, seed=1, stiffness=900,
-                 device="cpu"):
+                 device="cuda"):
         conf = conf or ClothConf(task="fold_cloth1", goal_path=goal_path("fold_cloth1"), seed=seed)
         conf.stiffness = stiffness
         super().__init__(conf, batch_size, max_steps=3, aux_reward=aux_reward, device=device)
@@ -38,7 +38,7 @@ class FoldCloth1Env(ClothEnv):
 
 
 class FoldCloth3Env(ClothEnv):
-    def __init__(self, batch_size, conf=None, aux_reward=False, seed=1, device="cpu"):
+    def __init__(self, batch_size, conf=None, aux_reward=False, seed=1, device="cuda"):
         conf = conf or ClothConf(task="fold_cloth3", goal_path=goal_path("fold_cloth3"), seed=seed)
         super().__init__(conf, batch_size, max_steps=4, aux_reward=aux_reward, device=device)
 

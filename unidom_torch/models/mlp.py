@@ -24,7 +24,8 @@ def _truncated_normal(shape, std, generator=None):
 
 
 class PolicyMLP(nn.Module):
-    def __init__(self, obs_size, param_size, hidden=(512, 256), generator=None, device=None):
+    def __init__(self, obs_size, param_size, hidden=(512, 256), generator=None,
+                 device="cuda"):
         super().__init__()
         sizes = [obs_size, *hidden, param_size]
         self.layers = nn.ModuleList(

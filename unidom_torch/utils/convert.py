@@ -12,7 +12,7 @@ from unidom_torch.models.mlp import PolicyMLP
 from unidom_torch.models.normalizer import NormalizerParams
 
 
-def policy_from_jax(params_np, device="cpu") -> PolicyMLP:
+def policy_from_jax(params_np, device="cuda") -> PolicyMLP:
     """PolicyMLP from ``{'params': {'dense_i': {'kernel', 'bias'}}}``. A flax
     kernel is (in, out); ``nn.Linear.weight`` is its transpose."""
     dense = params_np["params"]
@@ -26,7 +26,7 @@ def policy_from_jax(params_np, device="cpu") -> PolicyMLP:
     return policy
 
 
-def normalizer_from_jax(count, mean, m2, device="cpu") -> NormalizerParams:
+def normalizer_from_jax(count, mean, m2, device="cuda") -> NormalizerParams:
     """NormalizerParams from the JAX normalizer's (count, mean, m2)."""
     def f32(a):
         return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
