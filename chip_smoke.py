@@ -17,6 +17,19 @@ than a block has threads, at the grid's corner (``BORDER_HW``). One rollout
 and one update at 1024 envs run under ``torch.profiler``: device busy share
 and device time by kernel.
 
+It also builds the MPM macro-step kernel (K2-fwd) and drives the port's MPM
+path: whip_rope (n_grid 64, a 32^3 focus grid, 67 particles, 70 substeps per
+macro step) at 1024 envs:
+  - one macro step from a perturbed state, the kernel against the float32
+    and float64 plain steps, with a witness that the gate can fail;
+  - one macro step of configurations whip_rope does not exercise: shape_rope
+    (582 plastic particles, a 64x6x64 grid, 133 substeps, collision) and the
+    small configs of tests/test_pallas_mpm.py (water, von Mises, a bowl);
+  - the policy rollout (``run_eval``, 70 macro steps, 70 K2-fwd launches),
+    three of its macro steps replayed through the plain steps; the kernel's
+    refusal of a gradient; its times at 1024 and 4096 envs beside the plain
+    step and the bound; the rollout's env-steps/s and profile.
+
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
 
 It prints one line per phase with its seconds, the card's name and power
@@ -34,6 +47,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -141,6 +155,50 @@ FLOP_FWD = 191
 FLOP_BWD = 565
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = 67e12
+
+# ---- the MPM path: whip_rope (n_grid 64, a 32^3 focus grid, 67 particles,
+# 70 substeps per macro step, 70 macro steps per episode) at bench.py's
+# MPM width, through K2-fwd.
+# K2-fwd against the plain macro step on the same inputs, as K1-fwd: per
+# field, the kernel's RMS error against the float64 plain step at most
+# PARITY_RATIO times the float32 plain step's, plus a floor near float32's
+# spacing at the field's size (x, F, J and the primitive's buffers ~1, v ~1,
+# C ~10). The RMS and the median over envs of the per-env error norm are
+# printed.
+MPM_FLOOR = {"x": 1e-7, "v": 1e-6, "C": 1e-5, "F": 1e-7, "J": 1e-7, "position": 1e-7,
+             "rotation": 1e-7}
+# The gate must be able to fail: the float32 plain step with no elastic
+# stress (mu = lamda = 0 in the state, inputs only) must miss float64 in v
+# by at least WITNESS_MARGIN times the gate.
+WITNESS_MARGIN = 10.0
+# whip_rope's parity step: the test_pallas_mpm.py action, scaled as
+# whip_rope's get_primitive_actions scales a macro action (1/50).
+MPM_ACTION = (0.4 / 50, 0.2 / 50, -0.3 / 50, 0.05 / 50, 0.05 / 50, 0.05 / 50)
+# The rollout's macro steps replayed by the kernel, the float32 and the
+# float64 plain step (mean reward error gate as K1's sampled rollout).
+MPM_REPLAYED = (0, 35, 69)
+B_MPM_CONFIG = 256  # the small configs of tests/test_pallas_mpm.py
+B_SHAPE_ROPE = 64
+# Operations of K2-fwd, counted from unidom_torch/csrc/mpm_step.cu for an
+# elastic particle (whip_rope's rope), each add, subtract, multiply,
+# division, square root, exp or log counting as one, comparisons and selects
+# as none, the stencil counted once per substep (the kernel recomputes it
+# for the clearing and for G2P; that is not counted):
+#   F update 63 (I + dt C: 18, the product 45); hardness and Lame 4;
+#   the SVD 1414 (A^T A 45; 18 Jacobi rotations x 69: 15 for the angle, 54
+#   for the rows, columns and V; sigma 6; A V 45; the scaled columns 9;
+#   Gram-Schmidt with its fallbacks 67); det 2; stress and affine 223
+#   (R 45, 2 mu (F - R) F^T 136, the diagonal 6, the scaling and p_mass C 36);
+#   the stencil 51; P2G 27 nodes x 31 (weight 2, offsets 3, momentum 18,
+#   weighted 3, mass 1, 4 atomic adds) = 837; G2P 27 x 29 = 783 and the
+#   advection, C scaling and J 20: 3,397 per particle-substep.
+#   A touched grid cell under position control: mass normalisation 3,
+#   gravity 6, position 3, the box SDF in the primitive's frame 66 (inverse
+#   quaternion 13, rotation 30, the SDF 20, the test 1, the velocity 3): 78;
+#   plus ground friction 21 on the cells of the bottom 3 layers.
+FLOP_MPM_PARTICLE = 3397
+FLOP_MPM_CELL = 78
+FLOP_MPM_FRICTION = 21
 
 
 def log(msg):
@@ -403,6 +461,411 @@ def robot_action(B, device):
     return a
 
 
+def mpm_cast(state, dtype):
+    """An MPM state (a tree of dataclasses) with its float tensors in ``dtype``."""
+    from unidom_torch.ops.gradops import tree_flatten
+
+    leaves, rebuild = tree_flatten(state)
+    return rebuild([t.to(dtype) if t.is_floating_point() else t for t in leaves])
+
+
+def mpm_plain_env(env, dtype):
+    """Shallow copy of the MPM ``env`` that runs the plain step in ``dtype``."""
+    out = copy.copy(env)
+    out.simulator = copy.copy(env.simulator)
+    out.simulator.step_batch = out.simulator._step_plain
+    out.goal = env.goal.to(dtype)
+    out.init_state = mpm_cast(env.init_state, dtype)
+    return out
+
+
+def mpm_fields(state):
+    """The macro step's outputs by name: x, v, C, F, J and the primitives'
+    position and rotation buffers."""
+    import torch
+
+    out = {n: getattr(state, n) for n in ("x", "v", "C", "F", "J")}
+    out["position"] = torch.stack([p.position for p in state.primitives], 1)
+    out["rotation"] = torch.stack([p.rotation for p in state.primitives], 1)
+    return out
+
+
+def mpm_gate(what, kernel, plain, ref, floors=MPM_FLOOR):
+    """Fail unless, for every field, the kernel's RMS error against ``ref``
+    (float64) is at most PARITY_RATIO times the float32 plain step's plus the
+    field's floor. Logs the RMS and the median over envs of the per-env
+    error norm. Returns (the largest |kernel - plain|, the gate per field)."""
+    import torch
+
+    worst, gates = 0.0, {}
+    k, p, r = mpm_fields(kernel), mpm_fields(plain), mpm_fields(ref)
+    for name, floor in floors.items():
+        kk, pp, rr = (t[name].double().reshape(t[name].shape[0], -1) for t in (k, p, r))
+        if not torch.isfinite(kk).all():
+            fail(f"{what} {name}: the kernel's output is not finite")
+        kp = (kk - pp).abs().max().item()
+        worst = max(worst, kp)
+        rms_k, rms_p = errors(kk, rr)[1], errors(pp, rr)[1]
+        med_k, med_p = (kk - rr).norm(dim=1).median().item(), (pp - rr).norm(dim=1).median().item()
+        gates[name] = PARITY_RATIO * rms_p + floor
+        log(f"[{what}] {name}: error vs the float64 plain step, rms: kernel {rms_k:.3e}, float32 "
+            f"plain {rms_p:.3e} (gate {PARITY_RATIO:g} x {rms_p:.3e} + {floor:g}); per-env "
+            f"median: kernel {med_k:.3e}, float32 plain {med_p:.3e}; kernel vs plain max {kp:.3e}")
+        if rms_k > gates[name]:
+            fail(f"{what} {name}: the kernel is further from float64 than the plain step")
+    return worst, gates
+
+
+def mpm_stencil_cells(sim, x):
+    """Per env, the flat indices of the grid cells the particles' stencils
+    touch at positions ``x`` (B, P, 3): a list of 1-D tensors."""
+    import torch
+
+    conf = sim.conf
+    base = torch.floor(x * conf.inv_dx - 0.5).long()
+    node = base[:, :, None, :] + sim.offsets.long()  # (B, P, 27, 3)
+    res = torch.tensor(conf.res, device=x.device)
+    ok = ((node >= 0) & (node < res)).all(-1)
+    flat = (node[..., 0] * conf.res[1] + node[..., 1]) * conf.res[2] + node[..., 2]
+    return [torch.unique(flat[b][ok[b]]) for b in range(x.shape[0])]
+
+
+def mpm_work(sim, x_in, x_out):
+    """(touched cells, of them in the bottom 3 layers) per substep, summed
+    over envs: the mean of the macro step's first and last substeps."""
+    conf = sim.conf
+    counts = []
+    for x in (x_in, x_out):
+        cells = mpm_stencil_cells(sim, x)
+        counts.append((sum(len(c) for c in cells),
+                       sum(int(((c // conf.res[2]) % conf.res[1] < 3).sum()) for c in cells)))
+    return tuple((a + b) / 2 for a, b in zip(*counts))
+
+
+def mpm_bound(sim, state, out):
+    """Least time in ms of one K2-fwd launch from ``state`` to ``out``, and
+    what bounds it: the operations counted above for this run's touched
+    cells, and the bytes of its inputs and outputs."""
+    from unidom_torch.ops.cuda.mpm_kernel import pack_primitives
+
+    conf = sim.conf
+    B, P = state.x.shape[:2]
+    cells, bottom = mpm_work(sim, state.x, out.x)
+    flops = conf.steps * (FLOP_MPM_PARTICLE * B * P + FLOP_MPM_CELL * cells
+                          + FLOP_MPM_FRICTION * bottom)
+    fields = mpm_fields(out)
+    moved = (nbytes([getattr(state, n) for n in ("x", "v", "C", "F", "J", "mu", "lamda",
+                                                 "yield_stress", "friction")])
+             + nbytes(pack_primitives(state)) + nbytes([sim._h, sim._material])
+             + nbytes(fields.values()))
+    return bound(moved, flops), flops, moved, cells / B
+
+
+def whip_rope_parity_state(env, dev, seed=0):
+    """whip_rope's reset state in the simulator's frame (the focus shift
+    applied), perturbed as tests/test_pallas_mpm.py does it: random v and C,
+    and the primitive on the rope's end (the particle of least x)."""
+    import numpy as np
+    import torch
+
+    B = env.batch_size
+    _, s = env.reset(torch.Generator().manual_seed(seed))
+    s, _ = env.pre_step(s)
+    rng = np.random.default_rng(seed)
+    end = s.x[torch.arange(B, device=dev), s.x[..., 0].argmin(1)]  # (B, 3)
+    p0 = s.primitives[0]
+    position = p0.position.clone()
+    position[:, 0] = end
+    return s.replace(
+        v=torch.from_numpy(0.2 * rng.standard_normal(s.v.shape, dtype=np.float32)).to(dev),
+        C=torch.from_numpy(0.5 * rng.standard_normal(s.C.shape, dtype=np.float32)).to(dev),
+        primitives=(p0.replace(position=position),))
+
+
+def cells_under_control(sim, state):
+    """Per env, how many touched grid cells lie within 1.5 x size[0] of the
+    primitive's surface at the first substep (position control takes them)."""
+    import torch
+
+    from unidom_torch.ops.gradops import clip
+    from unidom_torch.ops.quat import qinv, qrot
+    from unidom_torch.ops.sdf import sdf_box
+
+    conf = sim.conf
+    p = state.primitives[0]
+    pos, rot = clip(p.position[:, 0], -2.0, 2.0), p.rotation[:, 0]
+    counts = []
+    for b, cells in enumerate(mpm_stencil_cells(sim, state.x)):
+        ijk = torch.stack([cells // (conf.res[1] * conf.res[2]), (cells // conf.res[2]) % conf.res[1],
+                           cells % conf.res[2]], -1).float() * conf.dx
+        local = qrot(qinv(rot[b])[None], ijk - pos[b])
+        counts.append(int((sdf_box(p.size[b], local) < p.size[b, 0] * 1.5).sum()))
+    return torch.tensor(counts)
+
+
+def mpm_config_sim(name, B, dev):
+    """(simulator, perturbed state, action) of a configuration that whip_rope
+    does not exercise: shape_rope's (a plastic rope pushed by a box under
+    collision, in the focus grid), or tests/test_pallas_mpm.py's small ones."""
+    import numpy as np
+    import torch
+
+    from unidom_torch.engine.mpm import PLASTIC_CLIP, VON_MISES, WATER, MPMConf, MPMSimulator
+    from unidom_torch.engine.primitives import create_primitive
+    from unidom_torch.envs.mpm_tasks import ShapeRopeConf
+
+    rng = np.random.default_rng(1)
+    small = dict(n_grid=32, dt=2e-4, steps=8, E=100.0, nu=0.1, res=(16, 16, 16),
+                 ground_friction=0.5, task="test")
+    a = np.zeros((B, 6), np.float32)
+    if name == "shape_rope":
+        # ShapeRopeEnv.reset's rope and pusher, shifted into the focus grid as
+        # pre_step shifts them, the pusher just short of the rope, pushing
+        sim = MPMSimulator(ShapeRopeConf, B, use_position_control=False, device=dev)
+        s = sim.add_box(None, size=(0.25, 0.006, 0.006), init_pos=(0.5, 0.01, 0.5),
+                        material=PLASTIC_CLIP, density=3.0)
+        s.primitives.append(create_primitive(ShapeRopeConf.steps, 0.1, 666.0, [0.5] * 3,
+                                             (0.015, 0.06, 0.015), (0.25, 0.01, 0.225), device=dev))
+        sim.register_primitive_sdf("box")
+        s = sim.reset(s)
+        s = s.replace(x=s.x + torch.tensor([-0.25, 0.0, -0.25], device=dev))
+        a[:, 2] = 0.05
+        ys = None
+    elif name == "bowl_water":  # tests/test_pallas_mpm.py's container config
+        conf = MPMConf(**{**small, "E": 5e-4, "nu": 0.3, "ground_friction": 0.1})
+        sim = MPMSimulator(conf, B, use_position_control=False, device=dev)
+        s = sim.add_box(None, size=(0.06, 0.04, 0.06), init_pos=(0.5, 0.2, 0.5),
+                        material=WATER, density=1.5)
+        s.primitives.append(create_primitive(8, 0.1, 666.0, [0.5] * 3, (0.09, 0.0, 0.008),
+                                             (0.5, 0.17, 0.5), device=dev))
+        sim.register_primitive_sdf("container")
+        s = sim.reset(s)
+        a[:, :3], a[:, 3:] = (0.4, 0.2, -0.3), 0.05
+        ys = None
+    else:  # "water" or "von_mises": tests/test_pallas_mpm.py's small config
+        sim = MPMSimulator(MPMConf(**small), B, use_position_control=False, device=dev)
+        s = sim.add_box(None, size=(0.25, 0.06, 0.06), init_pos=(0.5, 0.08, 0.5),
+                        material=WATER if name == "water" else VON_MISES, density=1.5)
+        s.primitives.append(create_primitive(8, 0.2, 666.0, [0.5] * 3, (0.03,) * 3,
+                                             (0.5, 0.06, 0.46), device=dev))
+        sim.register_primitive_sdf("box")
+        s = sim.reset(s)
+        a[:, :3], a[:, 3:] = (0.4, 0.2, -0.3), 0.05
+        ys = torch.full_like(s.yield_stress, 0.05)
+    s = s.replace(
+        v=torch.from_numpy(0.2 * rng.standard_normal(s.v.shape, dtype=np.float32)).to(dev),
+        C=torch.from_numpy(0.5 * rng.standard_normal(s.C.shape, dtype=np.float32)).to(dev),
+        yield_stress=s.yield_stress if ys is None else ys)
+    return sim, s, torch.from_numpy(a).to(dev)
+
+
+def mpm_phases(dev):
+    """The MPM path: K2-fwd parity, other configurations, the whip_rope
+    rollout at 1024 envs through K2-fwd, the gradient refusal, times and the
+    bound. Returns the kernels-line entry of K2-fwd and the K1 launches seen
+    in the whip_rope rollout."""
+    import torch
+
+    from unidom_torch import make_env
+    from unidom_torch.algorithms.apg import run_eval
+    from unidom_torch.models.mlp import PolicyMLP
+    from unidom_torch.ops.cuda.cloth_kernel import cloth_robot_step
+    from unidom_torch.ops.cuda.mpm_kernel import mpm_step
+
+    # ---- 11. K2-fwd parity: one whip_rope macro step at 1024 envs
+    t_phase = time.perf_counter()
+    env = make_env("whip_rope", batch_size=B_MAIN, device=dev)
+    sim = env.simulator
+    state = whip_rope_parity_state(env, dev)
+    action = torch.tensor(MPM_ACTION, device=dev).expand(B_MAIN, 6)
+    with torch.no_grad():
+        out_k = mpm_step(sim, state, action)
+        torch.cuda.synchronize()
+        out_p = sim._step_plain(state, action)
+        out_64 = sim._step_plain(mpm_cast(state, torch.float64), action.double())
+        parity_err, gates = mpm_gate("mpm-parity", out_k, out_p, out_64)
+        witness = sim._step_plain(state.replace(mu=torch.zeros_like(state.mu),
+                                                lamda=torch.zeros_like(state.lamda)), action)
+    ratios = {}
+    for name, t in mpm_fields(witness).items():
+        ratios[name] = errors(t, mpm_fields(out_64)[name])[1] / gates[name]
+    log("[mpm-parity] witness, the float32 plain step with mu = lamda = 0: rms error vs float64 "
+        "over the gate " + ", ".join(f"{k} {v:.3e}x" for k, v in ratios.items())
+        + f" (must be at least {WITNESS_MARGIN:g}x in v)")
+    if not ratios["v"] >= WITNESS_MARGIN:
+        fail("the witness without elastic stress passes the gate: the gate holds nothing")
+    moved = (out_k.x - state.x).abs().max().item()
+    controlled = cells_under_control(sim, state)
+    log(f"[mpm-parity] B={B_MAIN}, P={sim.n_particles}, res {sim.conf.res}, {sim.conf.steps} "
+        f"substeps; rope moved up to {moved:.3e}; grid cells under position control at the "
+        f"first substep per env: min {int(controlled.min())}, median "
+        f"{int(controlled.median())}; {time.perf_counter() - t_phase:.2f} s")
+    if moved < 1e-4:
+        fail("the parity step left the rope where it was")
+    if int(controlled.min()) == 0:
+        fail("no grid cell was under position control in some env")
+    bound_1024, flops, moved_bytes, cells_per_env = mpm_bound(sim, state, out_k)
+    del out_p, out_64, witness
+
+    # ---- 12. K2-fwd on configurations whip_rope does not exercise
+    t_phase = time.perf_counter()
+    for name, B in (("shape_rope", B_SHAPE_ROPE), ("water", B_MPM_CONFIG),
+                    ("von_mises", B_MPM_CONFIG), ("bowl_water", B_MPM_CONFIG)):
+        csim, cs, ca = mpm_config_sim(name, B, dev)
+        with torch.no_grad():
+            ck = mpm_step(csim, cs, ca)
+            cp = csim._step_plain(cs, ca)
+            c64 = csim._step_plain(mpm_cast(cs, torch.float64), ca.double())
+        err, _ = mpm_gate(f"mpm-config {name}", ck, cp, c64)
+        parity_err = max(parity_err, err)
+        log(f"[mpm-config] {name}: B={B}, P={csim.n_particles}, res {csim.conf.res}, "
+            f"{csim.conf.steps} substeps, SDF {csim.sdf_names}, materials "
+            f"{sorted(set(csim.material.tolist()))}, "
+            f"{'position control' if csim.use_position_control else 'collision'}; particles "
+            f"moved up to {(ck.x - cs.x).abs().max().item():.3e}")
+        if name == "shape_rope" and csim.n_particles != 582:
+            fail(f"shape_rope has {csim.n_particles} particles, not 582")
+    log(f"[mpm-config] {time.perf_counter() - t_phase:.2f} s")
+    torch.cuda.empty_cache()
+
+    # ---- 13. the main path: the whip_rope policy rollout at 1024 envs
+    t_phase = time.perf_counter()
+    policy = PolicyMLP(env.observation_size, 2 * env.action_size,
+                       generator=torch.Generator().manual_seed(0), device=dev)
+    _, state0 = env.reset(torch.Generator().manual_seed(1))
+    mpm_step.launches = 0
+    cloth_robot_step.launches = 0
+    cloth_robot_step.bwd_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, acts, rewards = run_eval(policy, None, env, state0,
+                                generator=torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches = mpm_step.launches
+    k1 = {"fwd": cloth_robot_step.launches, "bwd": cloth_robot_step.bwd_launches}
+    log(f"[mpm-slice] run_eval whip_rope B={B_MAIN}: {launches} K2-fwd launches (expected "
+        f"{env.max_steps}), K1 launches {k1} (expected 0); first rollout {t_first:.3f} s")
+    if launches != env.max_steps:
+        fail(f"{launches} K2-fwd launches in the whip_rope rollout, expected {env.max_steps}")
+    if k1 != {"fwd": 0, "bwd": 0}:
+        fail(f"the whip_rope rollout launched the cloth kernels {k1}")
+    if tuple(rewards.shape) != (env.max_steps, B_MAIN) or not torch.isfinite(rewards).all():
+        fail(f"rewards of shape {tuple(rewards.shape)} are not all finite")
+
+    # replay the sampled rollout through the kernel, and three of its macro
+    # steps through the float32 and float64 plain steps from the kernel's state
+    env32, env64 = mpm_plain_env(env, torch.float32), mpm_plain_env(env, torch.float64)
+    s, lo, hi = state0, math.inf, -math.inf
+    with torch.no_grad():
+        for t in range(env.max_steps):
+            _, r_k, _, info = env.step_diff(acts[t], s)
+            # the step's particles before any auto-reset, in the simulator's
+            # frame: inside the box [0, n_grid dx]^3 that the walls bound
+            target = torch.tensor(env.conf.res, device=dev) * 0.5 / env.conf.n_grid
+            shift = target - s.x.mean(1)
+            shift[:, 1] = 0.0
+            x_sim = info["state_list"][-1].x + shift[:, None]
+            if not torch.isfinite(x_sim).all():
+                fail(f"macro step {t}: non-finite particles")
+            lo, hi = min(lo, x_sim.min().item()), max(hi, x_sim.max().item())
+            if t == env.max_steps - 1:
+                prim_moved = (info["state_list"][-1].primitives[0].position[:, -1]
+                              - state0.primitives[0].position[:, 0]).norm(dim=1)
+            if t in MPM_REPLAYED:
+                _, r_p, _, _ = env32.step_diff(acts[t], s)
+                _, r_64, _, _ = env64.step_diff(acts[t].double(), mpm_cast(s, torch.float64))
+                e_k, e_p = (r_k.double() - r_64).abs(), (r_p.double() - r_64).abs()
+                log(f"[mpm-slice] sampled macro step {t} from the kernel's state, reward error "
+                    f"vs the float64 plain step: kernel mean {e_k.mean():.3e} max {e_k.max():.3e}, "
+                    f"float32 plain mean {e_p.mean():.3e} max {e_p.max():.3e}; rewards mean "
+                    f"{r_64.mean():.6f}")
+                if e_k.mean() > PARITY_RATIO * e_p.mean() + 1e-6:
+                    fail(f"macro step {t}: the kernel's rewards are further from float64 than "
+                         "the plain step's")
+            s = info["state"]
+    extent = env.conf.n_grid * env.conf.dx
+    log(f"[mpm-slice] replayed episode: particles in the simulator's frame within [{lo:.5f}, "
+        f"{hi:.5f}] (the walls' box is [0, {extent:g}]); primitive moved by median "
+        f"{prim_moved.median().item():.4f}, max {prim_moved.max().item():.4f}; rewards per "
+        f"step (env 0) {[round(r, 5) for r in rewards[:, 0].tolist()[:10]]} ...")
+    if lo < 0.0 or hi > extent:
+        fail("particles left the box that the grid's walls allow")
+    if not prim_moved.max().item() > 1e-3:
+        fail("the primitive did not move")
+    del env32, env64
+    log(f"[mpm-slice] {time.perf_counter() - t_phase:.2f} s")
+
+    # ---- 14. no silent gradient on the card
+    with torch.enable_grad():
+        needy = state.replace(C=state.C.clone().requires_grad_())
+        try:
+            mpm_step(sim, needy, action)
+        except NotImplementedError as e:
+            log(f"[mpm-grad] a CUDA state that requires a gradient: NotImplementedError: {e}")
+        else:
+            fail("mpm_step on a CUDA state that requires a gradient did not raise")
+
+    # ---- 15. times, and the bound
+    t_phase = time.perf_counter()
+    times = {}
+    for B in (B_MAIN, B_WIDE):
+        wenv = env if B == B_MAIN else make_env("whip_rope", batch_size=B, device=dev)
+        ws = state if B == B_MAIN else whip_rope_parity_state(wenv, dev)
+        wa = torch.tensor(MPM_ACTION, device=dev).expand(B, 6)
+        rounds = []
+        with torch.no_grad():
+            for order in (("plain", "kernel"), ("kernel", "plain")):
+                r = {}
+                for which in order:
+                    if which == "kernel":
+                        r[which] = cuda_ms(lambda: mpm_step(wenv.simulator, ws, wa), reps=20)
+                    elif B == B_MAIN:
+                        r[which] = cuda_ms(lambda: sim._step_plain(ws, wa), reps=1, warmup=1)
+                rounds.append(r)
+        times[B] = {k: sum(r[k] for r in rounds) / len(rounds) for k in rounds[0]}
+        plain_txt = (f"plain {times[B]['plain']:.4f} ms, speedup "
+                     f"{times[B]['plain'] / times[B]['kernel']:.1f}x; " if B == B_MAIN else "")
+        log(f"[time] one whip_rope macro step, B={B}: K2-fwd {times[B]['kernel']:.4f} ms, "
+            f"{plain_txt}(rounds {rounds})")
+        del wenv, ws
+    log(f"[time] K2-fwd bound at B={B_MAIN}: {bound_1024[0]:.4f} ms ({bound_1024[1]}): "
+        f"{FLOP_MPM_PARTICLE} operations per particle-substep, {FLOP_MPM_CELL} per touched "
+        f"cell (+{FLOP_MPM_FRICTION} on the bottom 3 layers), {cells_per_env:.1f} touched cells "
+        f"per env and substep in this run: {flops / 1e9:.3f} GFLOP; {moved_bytes / 1e6:.2f} MB "
+        f"in and out; K2-fwd at {100 * bound_1024[0] / times[B_MAIN]['kernel']:.2f}% of it")
+    t_roll = []
+    with torch.no_grad():
+        for _ in range(4):  # a warm rollout, then best of 3
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_eval(policy, None, env, state0, deterministic=True)
+            torch.cuda.synchronize()
+            t_roll.append(time.perf_counter() - t0)
+    env_steps = env.max_steps * B_MAIN
+    log(f"[time] whip_rope rollout B={B_MAIN} ({env.max_steps} macro steps): "
+        f"{env_steps / min(t_roll[1:]):.1f} env-steps/s through K2-fwd (best of "
+        f"{[round(t, 4) for t in t_roll[1:]]} s after a warm {t_roll[0]:.4f} s)")
+    profile_device(f"run_eval whip_rope B={B_MAIN}",
+                   lambda: run_eval(policy, None, env, state0, deterministic=True))
+    log(f"[time] phase 15 in {time.perf_counter() - t_phase:.2f} s")
+    entry = {
+        "name": "mpm_step_fwd",
+        "route": "cuda",
+        "source": "unidom_torch/csrc/mpm_step.cu",
+        "replaces": "unidom_tpu/ops/pallas/mpm_kernel.py:761",
+        "launches": launches,
+        "launches_by_path": {"whip_rope_run_eval": launches},
+        "max_abs_err": parity_err,
+        "ms": times[B_MAIN]["kernel"],
+        "plain_ms": times[B_MAIN]["plain"],
+        "bound_ms": bound_1024[0],
+        "bound_by": bound_1024[1],
+        "library_ms": None,
+    }
+    return entry, k1
+
+
 def main():
     import torch
 
@@ -423,9 +886,10 @@ def main():
     from unidom_torch.engine.cloth import ClothConf, ClothSimulator
     from unidom_torch.envs.cloth_tasks import goal_path
     from unidom_torch.models.mlp import PolicyMLP
-    from unidom_torch.ops.cuda import cloth_kernel
+    from unidom_torch.ops.cuda import cloth_kernel, mpm_kernel
     from unidom_torch.ops.cuda._build import build_library, library_path
     from unidom_torch.ops.cuda.cloth_kernel import cloth_robot_step, cloth_robot_step_vjp_plain
+    from unidom_torch.ops.cuda.mpm_kernel import mpm_step
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -442,14 +906,21 @@ def main():
     log(f"[device] {kind} x{count}; nvidia-smi: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
-    # ---- 2. build
+    # ---- 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    build_log = build_library(cloth_kernel.SOURCE)
-    log(f"[build] {cloth_kernel.SOURCE} -> {library_path(cloth_kernel.SOURCE).name} "
-        f"in {time.perf_counter() - t0:.2f} s")
-    for line in build_log.splitlines():
-        if any(w in line for w in ("entry function", "registers", "spill", "smem")):
-            log(f"[build] ptxas: {line.strip()}")
+    sources = (cloth_kernel.SOURCE, mpm_kernel.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        build_logs = list(pool.map(build_library, sources))
+    log(f"[build] {', '.join(f'{s} -> {library_path(s).name}' for s in sources)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for source, build_log in zip(sources, build_logs):
+        for line in build_log.splitlines():
+            if any(w in line for w in ("entry function", "registers", "spill", "smem")):
+                log(f"[build] {source} ptxas: {line.strip()}")
+
+    # ---- the MPM path (phases 11-15, see mpm_phases)
+    mpm_entry, whip_k1 = mpm_phases(dev)
+    torch.cuda.empty_cache()
 
     t_phase = time.perf_counter()
     with torch.no_grad():
@@ -490,6 +961,7 @@ def main():
         _, state0 = env.reset(torch.Generator().manual_seed(1))
         cloth_robot_step.launches = 0
         cloth_robot_step.bwd_launches = 0
+        mpm_step.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         final, actions, rewards = run_eval(policy, None, env, state0, deterministic=True)
@@ -498,12 +970,14 @@ def main():
         launches, eval_bwd_launches = cloth_robot_step.launches, cloth_robot_step.bwd_launches
         expected = env.max_steps * 40
         log(f"[slice] run_eval fold_cloth3 B={B_MAIN}: {launches} K1-fwd launches "
-            f"(expected {expected}), {eval_bwd_launches} K1-bwd (expected 0), first rollout "
-            f"{t_first:.3f} s")
+            f"(expected {expected}), {eval_bwd_launches} K1-bwd (expected 0), "
+            f"{mpm_step.launches} K2-fwd (expected 0), first rollout {t_first:.3f} s")
         if launches != expected:
             fail(f"{launches} kernel launches in the rollout, expected {expected}")
         if eval_bwd_launches != 0:
             fail(f"the rollout launched the backward kernel {eval_bwd_launches} times")
+        if mpm_step.launches != 0:
+            fail(f"the cloth rollout launched the MPM kernel {mpm_step.launches} times")
         if tuple(rewards.shape) != (env.max_steps, B_MAIN) or not torch.isfinite(rewards).all():
             fail(f"rewards of shape {tuple(rewards.shape)} are not all finite")
         conf = env.conf
@@ -656,6 +1130,7 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     cloth_robot_step.launches = 0
     cloth_robot_step.bwd_launches = 0
+    mpm_step.launches = 0
     ts, history = train("fold_cloth3", EP_LEN, B_MAIN, max_it=TRAIN_IT, eval_freq=TRAIN_IT,
                         num_eval_envs=20, logdir=str(logdir), device="cuda")
     torch.cuda.synchronize()
@@ -668,6 +1143,8 @@ def main():
         f"{mem_before / 1e9:.3f} GB held before)")
     if train_launches != {"fwd": expect_fwd, "bwd": expect_bwd}:
         fail(f"training launched the kernels {train_launches} times")
+    if mpm_step.launches != 0:
+        fail(f"fold_cloth3 training launched the MPM kernel {mpm_step.launches} times")
     for rec in history:
         log(f"[train] {json.dumps(rec)}")
         if not all(math.isfinite(rec[k]) for k in ("train_reward", "grad_norm", "sps")):
@@ -821,7 +1298,8 @@ def main():
         "source": "unidom_torch/csrc/cloth_robot_step.cu",
         "replaces": "unidom_tpu/ops/pallas/cloth_kernel.py:331",
         "launches": train_launches["fwd"],
-        "launches_by_path": {"run_eval": launches, "train": train_launches["fwd"]},
+        "launches_by_path": {"run_eval": launches, "train": train_launches["fwd"],
+                             "whip_rope_run_eval": whip_k1["fwd"]},
         "max_abs_err": errs_all,
         "ms": times[B_MAIN]["kernel"],
         "plain_ms": times[B_MAIN]["plain"],
@@ -834,14 +1312,15 @@ def main():
         "source": "unidom_torch/csrc/cloth_robot_step.cu",
         "replaces": "unidom_tpu/ops/pallas/cloth_kernel.py:354",
         "launches": train_launches["bwd"],
-        "launches_by_path": {"run_eval": eval_bwd_launches, "train": train_launches["bwd"]},
+        "launches_by_path": {"run_eval": eval_bwd_launches, "train": train_launches["bwd"],
+                             "whip_rope_run_eval": whip_k1["bwd"]},
         "max_abs_err": max(bwd_err, grad_err),
         "ms": bwd_times[B_MAIN]["kernel"],
         "plain_ms": bwd_times[B_MAIN]["plain"],
         "bound_ms": bounds[B_MAIN]["bwd"][0],
         "bound_by": bounds[B_MAIN]["bwd"][1],
         "library_ms": None,
-    }]}))
+    }, mpm_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 
 

@@ -147,8 +147,13 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|unidom_tpu)\b", re
 
 
 def test_port_imports_no_jax():
-    root = Path(__file__).resolve().parents[1] / "unidom_torch"
-    sources = sorted(root.rglob("*.py"))
-    assert sources
+    repo = Path(__file__).resolve().parents[1]
+    root = repo / "unidom_torch"
+    sources = sorted(root.rglob("*.py")) + [repo / "chip_smoke.py"]
+    names = {str(p.relative_to(repo)) for p in sources}
+    for module in ("ops/m3.py", "ops/svd3.py", "ops/quat.py", "ops/sdf.py", "engine/primitives.py",
+                   "engine/mpm.py", "ops/cuda/mpm_kernel.py", "envs/base_mpm.py",
+                   "envs/mpm_tasks.py"):
+        assert f"unidom_torch/{module}" in names
     offenders = [str(p) for p in sources if _FORBIDDEN.search(p.read_text())]
     assert offenders == []

@@ -11,8 +11,10 @@ Counterpart of ``unidom_tpu/algorithms/apg.py`` on one device:
   reset for cloth envs, periodic sampled and deterministic eval, per-eval and
   best checkpoints with ``torch.save``, resume, ``metrics.jsonl``.
 
-On CUDA tensors every robot step of the rollout runs the cloth kernel
-forward and, in the backward pass, the cloth kernel backward.
+On CUDA tensors every robot step of a cloth rollout runs the cloth kernel
+forward and, in the backward pass, the cloth kernel backward; every macro
+step of an MPM rollout (``run_eval`` of whip_rope) runs the MPM kernel,
+forward only.
 """
 
 import argparse

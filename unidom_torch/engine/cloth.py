@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from unidom_torch.ops.cuda.cloth_kernel import cloth_robot_step
+from unidom_torch.ops.gradops import clip as _clip
 from unidom_torch.ops.gradops import normalize_grad
 
 
@@ -74,12 +75,6 @@ class ClothConf:
 
 # 8-connected spring topology, (di, dj) per link
 LINKS = np.array([[-1, 0], [1, 0], [0, -1], [0, 1], [-1, -1], [1, -1], [-1, 1], [1, 1]])
-
-
-def _clip(x, lo, hi):
-    """``jnp.clip`` with JAX's gradient: at a tie with a bound, max/min split
-    the cotangent in half (``torch.clamp`` would pass all of it)."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
 
 
 def _edge_pad(x):

@@ -1,12 +1,22 @@
 """Gradient-stabilisation identities for long-horizon BPTT through physics.
 
 Counterpart of ``unidom_tpu/ops/gradops.py``: ``normalize_grad``, which sits
-inside every cloth substep, and the trainer's ``nan_to_num_tree`` and
+inside every cloth substep, the MPM macro step's ``clamp_grad_norm_tree``
+and ``scrub_mpm_state``, and the trainer's ``nan_to_num_tree`` and
 ``global_norm_clip``. A gradient "tree" here is a list, tuple or dict of
-tensors.
+tensors; an MPM state is a tree of dataclasses. Also ``clip``, ``jnp.clip``
+with JAX's gradient.
 """
 
+import dataclasses
+
 import torch
+
+
+def clip(x, lo, hi):
+    """``jnp.clip`` with JAX's gradient: at a tie with a bound, max/min split
+    the cotangent in half (``torch.clamp`` would pass all of it)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
 
 
 class NormalizeGrad(torch.autograd.Function):
@@ -64,3 +74,81 @@ def global_norm_clip(tree, max_norm):
     g_norm = global_norm(tree)
     trigger = g_norm < max_norm
     return _map(lambda t: torch.where(trigger, t, t / g_norm * max_norm), tree)
+
+
+def tree_flatten(tree):
+    """(tensor leaves, rebuild) of a tree of dataclasses, tuples and lists;
+    other values (None, numbers) are kept as they are."""
+    if isinstance(tree, torch.Tensor):
+        return [tree], lambda leaves: leaves[0]
+    if dataclasses.is_dataclass(tree):
+        names = [f.name for f in dataclasses.fields(tree)]
+        leaves, rebuild = tree_flatten([getattr(tree, n) for n in names])
+        return leaves, lambda ls: dataclasses.replace(tree, **dict(zip(names, rebuild(ls))))
+    if isinstance(tree, (tuple, list)):
+        parts = [tree_flatten(t) for t in tree]
+        sizes = [len(p[0]) for p in parts]
+
+        def rebuild(ls):
+            out, i = [], 0
+            for (_, sub), n in zip(parts, sizes):
+                out.append(sub(ls[i:i + n]))
+                i += n
+            return type(tree)(out)
+
+        return [t for p in parts for t in p[0]], rebuild
+    return [], lambda leaves: tree
+
+
+class _ScrubClamp(torch.autograd.Function):
+    """Forward: ``nan_to_num`` on the first ``n_scrub`` tensors, the identity
+    on the rest. Backward: NaN-scrub every cotangent, then clamp their joint
+    norm per env (over all dims after the first) to 1."""
+
+    @staticmethod
+    def forward(ctx, n_scrub, *tensors):
+        return tuple(torch.nan_to_num(t) if i < n_scrub else t.view_as(t)
+                     for i, t in enumerate(tensors))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [torch.nan_to_num(g) for g in grads]
+        sq = sum(torch.sum((g * g).reshape(g.shape[0], -1), dim=1) for g in grads)
+        norm = torch.sqrt(sq)  # (B,)
+        trigger = norm < 1.0
+
+        def clamp(g):
+            shape = (-1,) + (1,) * (g.dim() - 1)
+            return torch.where(trigger.view(shape), g, g / norm.view(shape))
+
+        return (None, *(clamp(g) for g in grads))
+
+
+def _scrub_clamp(scrubbed, tree):
+    """``_ScrubClamp`` on the tensors ``scrubbed`` and on the float leaves of
+    ``tree``. Returns (the scrubbed tensors, the tree rebuilt)."""
+    leaves, rebuild = tree_flatten(tree)
+    floats = [i for i, t in enumerate(leaves) if t.is_floating_point()]
+    outs = _ScrubClamp.apply(len(scrubbed), *scrubbed, *(leaves[i] for i in floats))
+    leaves = list(leaves)
+    for i, t in zip(floats, outs[len(scrubbed):]):
+        leaves[i] = t
+    return outs[:len(scrubbed)], rebuild(leaves)
+
+
+def clamp_grad_norm_tree(tree):
+    """Identity; backward scrubs NaNs and clamps the cotangent's global norm
+    to 1, per env (the JAX version under ``vmap``)."""
+    return _scrub_clamp((), tree)[1]
+
+
+_MPM_SCRUBBED = ("x", "v", "C", "F", "J")
+
+
+def scrub_mpm_state(state):
+    """NaN-scrub x, v, C, F and J of a batched MPM state on the forward pass,
+    and clamp the cotangent of all its float fields to norm 1 per env on the
+    backward pass (the JAX version under ``vmap``)."""
+    scrubbed = tuple(getattr(state, name) for name in _MPM_SCRUBBED)
+    outs, rest = _scrub_clamp(scrubbed, state.replace(**dict.fromkeys(_MPM_SCRUBBED)))
+    return rest.replace(**dict(zip(_MPM_SCRUBBED, outs)))

@@ -1,7 +1,7 @@
-"""Task metrics: chamfer distance.
+"""Task metrics: chamfer distance and mean L2 distance.
 
-Counterpart of ``unidom_tpu/ops/metrics.py``. The reward is built on it, so
-its numerics follow the JAX version: the pairwise distance comes from the
+Counterpart of ``unidom_tpu/ops/metrics.py``. Rewards are built on them, so
+their numerics follow the JAX version. Chamfer's pairwise distance comes from the
 Gram-matrix expansion x^2 + y^2 - 2xy, with the RMS taken as the mean over
 the xyz axis (euclidean / sqrt(3)).
 
@@ -54,3 +54,9 @@ def chamfer(x, goal):
     if B * Nx * goal.shape[0] <= CHAMFER_DENSE_LIMIT or Nx % CHAMFER_CHUNK != 0:
         return _chamfer_dense(x, goal)
     return _chamfer_chunked(x, goal)
+
+
+def l2_distance(x, goal):
+    """Mean per-particle RMS distance to the index-aligned goal. x: (B, N, 3),
+    goal: (N, 3). Returns (B,)."""
+    return torch.sqrt(((x - goal[None]) ** 2).mean(-1)).mean(-1)

@@ -1,9 +1,12 @@
-"""Carry a policy and an observation normalizer over from the JAX package.
+"""Carry a policy, an observation normalizer and an MPM state over from the
+JAX package.
 
-The inputs are the flax parameter tree and the normalizer's (count, mean,
-m2) as numpy arrays, e.g. from ``jax.device_get``, so this module needs no
-JAX.
+The inputs are the flax parameter tree, the normalizer's (count, mean, m2)
+and the MPM state as numpy arrays, e.g. from ``jax.device_get``, so this
+module needs no JAX.
 """
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -32,3 +35,20 @@ def normalizer_from_jax(count, mean, m2, device="cuda") -> NormalizerParams:
         return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
 
     return NormalizerParams(count=f32(count), mean=f32(mean), m2=f32(m2))
+
+
+def mpm_state_from_jax(state_np, device="cuda"):
+    """MPMState from a batched JAX ``MPMState`` whose leaves are numpy arrays
+    (``key`` is dropped: the port's envs own a ``torch.Generator``)."""
+    from unidom_torch.engine.mpm import MPMState
+    from unidom_torch.engine.primitives import PrimitiveState
+
+    def tensor(a):
+        return torch.tensor(np.asarray(a), device=device)
+
+    prims = tuple(
+        PrimitiveState(**{f.name: tensor(getattr(p, f.name))
+                          for f in dataclasses.fields(PrimitiveState)})
+        for p in state_np.primitives)
+    fields = [f.name for f in dataclasses.fields(MPMState) if f.name != "primitives"]
+    return MPMState(primitives=prims, **{k: tensor(getattr(state_np, k)) for k in fields})
