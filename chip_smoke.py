@@ -26,9 +26,19 @@ macro step) at 1024 envs:
     (582 plastic particles, a 64x6x64 grid, 133 substeps, collision) and the
     small configs of tests/test_pallas_mpm.py (water, von Mises, a bowl);
   - the policy rollout (``run_eval``, 70 macro steps, 70 K2-fwd launches),
-    three of its macro steps replayed through the plain steps; the kernel's
-    refusal of a gradient; its times at 1024 and 4096 envs beside the plain
-    step and the bound; the rollout's env-steps/s and profile.
+    three of its macro steps replayed through the plain steps; its times at
+    1024 and 4096 envs beside the plain step and the bound; the rollout's
+    env-steps/s and profile.
+and the MPM training path through K2-fwd with checkpoints, K2-bwd (the
+macro step's adjoint) and K2-seg (segment recompute, a phase of K2-bwd):
+  - one macro step's VJP at 1024 envs at K = 1 and at the stride rule's
+    K = 9, against the float32 and float64 plain VJPs, with a witness that
+    the gate can fail; one K2-seg segment against the plain forward; K2-bwd
+    on water, sigma-clip and von Mises under position control;
+  - whip_rope APG training (``train`` and ``minimize``, ep_len 3, 1024 envs:
+    3 K2-fwd, 3 K2-bwd and 24 K2-seg phases per update), one update's policy
+    gradient against the plain step's, the ep_len-70 update with truncation
+    10, K2-bwd's times and bound, and a profile of one update.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
 
@@ -199,6 +209,42 @@ B_SHAPE_ROPE = 64
 FLOP_MPM_PARTICLE = 3397
 FLOP_MPM_CELL = 78
 FLOP_MPM_FRICTION = 21
+# The MPM training path (whip_rope APG at 1024 envs) through K2-fwd, K2-bwd
+# and K2-seg. K2-bwd, one macro step's VJP from whip_rope's parity state
+# with output cotangents of MPM_COT_SCALE x N(0, 1) (small enough that the
+# macro step's per-env clamp of the input cotangent stays off), is held per
+# input to the median-over-envs gate of K1-bwd on the first B_MPM_GRAD envs,
+# against the float32 and float64 plain VJPs (autograd of the plain step,
+# scatter transfer: the dense one's autograd state would not fit), at the
+# stride rule's K = MPM_STRIDE and at K = 1; the witness, the float32 plain
+# VJP with mu = lamda = 0, must miss it by WITNESS_MARGIN. Under position
+# control the primitive's size, friction and softness take no gradient, nor
+# does the yield stress of a material that is not von Mises: those inputs
+# must be 0 in the kernel as in float64. K2-seg, segment MPM_SEGMENT of a
+# macro step, is held to K2-fwd's gate against the plain forward's carries.
+B_MPM_GRAD = 32
+MPM_STRIDE = 9
+MPM_SEGMENT = 4
+MPM_COT_SCALE = 1e-3
+MPM_STATE_INPUTS = ("x", "v", "C", "F", "J", "mu", "lamda", "yield_stress", "friction")
+MPM_PRIM_INPUTS = ("position", "rotation", "size", "friction", "softness")
+MPM_VJP_INPUTS = MPM_STATE_INPUTS + tuple(f"primitive.{n}" for n in MPM_PRIM_INPUTS) + ("action",)
+MPM_PC_ZERO = ("primitive.size", "primitive.friction", "primitive.softness")
+# Operations of K2-bwd's work, counted from unidom_torch/csrc/mpm_step.cu as
+# K2-fwd's above, for an elastic particle: the forward once (3,397), and the
+# adjoint: G2P and advection 32 + 27 nodes x 81 (weight 2, its three
+# derivatives 15, the C term 15, the node's cotangent 9, the x terms 40) =
+# 2,219; P2G 27 x 115 (weight and derivatives 17, offsets 3, momentum 21,
+# the dot 8, v 9, affine 27, x 30) = 3,105; stress 400 (R 45, dS and p_mass
+# C 18, (F - R) F^T 45, mu 18, Jd 6, dS F 45, dS^T (F - R) 45, dF 36, dR 18,
+# dU 45, dV 45, rest 40); Jd's singular values 6; the SVD's adjoint 780
+# (U^T dU, V^T dV 90, the inverses 33, J and K 24, five terms 597, sums 36);
+# F's update 160; the accumulators 4: 10,071 per particle-substep. A touched
+# cell: the forward's 78 and 15 of adjoint (mass normalisation 12, position
+# control 3); ground friction 21 + 25 on the bottom 3 layers.
+FLOP_MPM_BWD_PARTICLE = 10071
+FLOP_MPM_BWD_CELL = 93
+FLOP_MPM_BWD_FRICTION = 46
 
 
 def log(msg):
@@ -339,10 +385,12 @@ def vjp_inputs(sim, s):
     return inputs, cot
 
 
-def per_env_gate(what, names, kernel, plain, ref):
+def per_env_gate(what, names, kernel, plain, ref, zero=(), gates=None):
     """Fail unless, for every output, the median over envs (the leading
     axis) of the kernel's error norm against ``ref`` (float64) is at most
-    PARITY_RATIO times the float32 plain version's, plus the floor. Returns
+    PARITY_RATIO times the float32 plain version's, plus the floor. The
+    outputs named in ``zero`` have an all-0 reference and must be 0 in the
+    kernel too. ``gates``, when given, receives each output's gate. Returns
     the largest |kernel - plain|."""
     import torch
 
@@ -351,6 +399,11 @@ def per_env_gate(what, names, kernel, plain, ref):
         if not torch.isfinite(k).all():
             fail(f"{what} {name}: the kernel's output is not finite")
         kk, pp, rr = (t.double().reshape(t.shape[0], -1) for t in (k, p, r))
+        if name in zero:
+            if rr.abs().max() > 0 or kk.abs().max() > 0:
+                fail(f"{what} {name}: expected 0, kernel max {kk.abs().max().item():.3e}, "
+                     f"reference max {rr.abs().max().item():.3e}")
+            continue
         if not rr.abs().max() > 0:
             fail(f"{what} {name}: the reference is 0 in every env, the gate would hold nothing")
         kp = (kk - pp).abs().max().item()
@@ -366,6 +419,8 @@ def per_env_gate(what, names, kernel, plain, ref):
             f"{med_p:.3e} + {floor:.3e}); max: kernel {e_k.max().item():.3e}, float32 plain "
             f"{e_p.max().item():.3e}; rms over entries: kernel {errors(kk, rr)[1]:.3e}, float32 "
             f"plain {errors(pp, rr)[1]:.3e}; {cos_txt}kernel vs plain max {kp:.3e}")
+        if gates is not None:
+            gates[name] = PARITY_RATIO * med_p + floor
         if med_k > PARITY_RATIO * med_p + floor:
             fail(f"{what} {name}: the kernel is further from float64 than the plain version")
     return worst
@@ -603,10 +658,12 @@ def cells_under_control(sim, state):
     return torch.tensor(counts)
 
 
-def mpm_config_sim(name, B, dev):
+def mpm_config_sim(name, B, dev, position_control=False):
     """(simulator, perturbed state, action) of a configuration that whip_rope
     does not exercise: shape_rope's (a plastic rope pushed by a box under
-    collision, in the focus grid), or tests/test_pallas_mpm.py's small ones."""
+    collision, in the focus grid), or tests/test_pallas_mpm.py's small ones
+    (water, von Mises or sigma-clip plastic under the box, by collision or
+    ``position_control``; water in a bowl)."""
     import numpy as np
     import torch
 
@@ -642,16 +699,19 @@ def mpm_config_sim(name, B, dev):
         s = sim.reset(s)
         a[:, :3], a[:, 3:] = (0.4, 0.2, -0.3), 0.05
         ys = None
-    else:  # "water" or "von_mises": tests/test_pallas_mpm.py's small config
-        sim = MPMSimulator(MPMConf(**small), B, use_position_control=False, device=dev)
+    else:  # "water", "von_mises" or "plastic": tests/test_pallas_mpm.py's small config
+        sim = MPMSimulator(MPMConf(**small), B, use_position_control=position_control,
+                           device=dev)
+        material = {"water": WATER, "von_mises": VON_MISES, "plastic": PLASTIC_CLIP}[name]
         s = sim.add_box(None, size=(0.25, 0.06, 0.06), init_pos=(0.5, 0.08, 0.5),
-                        material=WATER if name == "water" else VON_MISES, density=1.5)
+                        material=material, density=1.5)
         s.primitives.append(create_primitive(8, 0.2, 666.0, [0.5] * 3, (0.03,) * 3,
                                              (0.5, 0.06, 0.46), device=dev))
         sim.register_primitive_sdf("box")
         s = sim.reset(s)
         a[:, :3], a[:, 3:] = (0.4, 0.2, -0.3), 0.05
-        ys = torch.full_like(s.yield_stress, 0.05)
+        # a yield stress that the von-Mises return map reaches in one macro step
+        ys = torch.full_like(s.yield_stress, 0.005 if position_control else 0.05)
     s = s.replace(
         v=torch.from_numpy(0.2 * rng.standard_normal(s.v.shape, dtype=np.float32)).to(dev),
         C=torch.from_numpy(0.5 * rng.standard_normal(s.C.shape, dtype=np.float32)).to(dev),
@@ -796,16 +856,6 @@ def mpm_phases(dev):
     del env32, env64
     log(f"[mpm-slice] {time.perf_counter() - t_phase:.2f} s")
 
-    # ---- 14. no silent gradient on the card
-    with torch.enable_grad():
-        needy = state.replace(C=state.C.clone().requires_grad_())
-        try:
-            mpm_step(sim, needy, action)
-        except NotImplementedError as e:
-            log(f"[mpm-grad] a CUDA state that requires a gradient: NotImplementedError: {e}")
-        else:
-            fail("mpm_step on a CUDA state that requires a gradient did not raise")
-
     # ---- 15. times, and the bound
     t_phase = time.perf_counter()
     times = {}
@@ -866,6 +916,447 @@ def mpm_phases(dev):
     return entry, k1
 
 
+def mpm_slice_envs(state, n):
+    """The first ``n`` envs of an MPM state."""
+    from unidom_torch.ops.gradops import tree_flatten
+
+    leaves, rebuild = tree_flatten(state)
+    return rebuild([t[:n].contiguous() for t in leaves])
+
+
+def mpm_vjp(step, state, action, cot):
+    """Cotangents of MPM_VJP_INPUTS for one macro step ``step(state,
+    action)`` under the output cotangents ``cot`` (x, v, C, F, J, position,
+    rotation)."""
+    import torch
+
+    p = state.primitives[0]
+    ins = [getattr(state, n).detach().clone().requires_grad_() for n in MPM_STATE_INPUTS]
+    ins += [getattr(p, n).detach().clone().requires_grad_() for n in MPM_PRIM_INPUTS]
+    ins.append(action.detach().clone().requires_grad_())
+    n = len(MPM_STATE_INPUTS)
+    prim = p.replace(**dict(zip(MPM_PRIM_INPUTS, ins[n:-1])))
+    s = state.replace(**dict(zip(MPM_STATE_INPUTS, ins[:n])), primitives=(prim,))
+    with torch.enable_grad():
+        out = step(s, ins[-1])
+        outs = (out.x, out.v, out.C, out.F, out.J, out.primitives[0].position,
+                out.primitives[0].rotation)
+        grads = torch.autograd.grad(outs, ins, [c.to(outs[0].dtype) for c in cot], allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g.detach() for g, t in zip(grads, ins)]
+
+
+def mpm_vjp_cot(out, seed=0):
+    """Random output cotangents from a numpy seed, small enough that the
+    macro step's per-env clamp of the input cotangent stays off."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    fields = (out.x, out.v, out.C, out.F, out.J, out.primitives[0].position,
+              out.primitives[0].rotation)
+    return [torch.from_numpy(MPM_COT_SCALE * rng.standard_normal(tuple(t.shape)).astype(np.float32))
+            .to(t.device) for t in fields]
+
+
+def plain_mpm_sim(sim, transfer="scatter"):
+    """Shallow copy of ``sim`` whose plain step uses ``transfer``."""
+    out = copy.copy(sim)
+    out.transfer_mode = transfer
+    return out
+
+
+def mpm_action_checks(what, grads):
+    """Fail unless the action's translation cotangent (position control's
+    whole gradient) is non-zero in every env."""
+    a = grads[MPM_VJP_INPUTS.index("action")][:, :3]
+    zero = int((a.abs().amax(1) == 0).sum())
+    if zero:
+        fail(f"{what}: the action's cotangent is 0 in {zero} envs")
+
+
+def mpm_policy_grads(env, seed):
+    """One update's per-env policy gradients (ep_len 1) from ``env``'s reset,
+    noise from numpy ``seed``, through the kernels, the float32 and the
+    float64 plain step (scatter transfer); (B, n_params) float64 each."""
+    import numpy as np
+    import torch
+
+    from unidom_torch.algorithms.apg import build_apg
+    from unidom_torch.models.distribution import NormalTanhDistribution
+
+    B, dev = env.batch_size, env.device
+    init_ts, _, reset_batch, _ = build_apg(env, 1, device=dev)
+    ts = init_ts(0)
+    s0 = reset_batch(torch.Generator().manual_seed(0))
+    eps = torch.from_numpy(np.random.default_rng(seed).standard_normal((B, env.action_size))
+                           .astype(np.float32)).to(dev)
+    dist = NormalTanhDistribution(event_size=env.action_size)
+
+    def per_env(e, policy, state, eps):
+        params = list(policy.parameters())
+        actions = dist.sample_from_eps(policy(e.get_obs(state)), eps)
+        _, reward, _, _ = e.step_diff(actions, state)
+        (g_actions,) = torch.autograd.grad(-reward.mean(), actions, retain_graph=True)
+        rows = [torch.autograd.grad(actions[i], params, g_actions[i], retain_graph=True)
+                for i in range(B)]
+        return torch.cat([torch.stack(g).double().reshape(B, -1) for g in zip(*rows)], 1)
+
+    env32, env64 = mpm_plain_env(env, torch.float32), mpm_plain_env(env, torch.float64)
+    for e in (env32, env64):
+        e.simulator.transfer_mode = "scatter"
+    return (per_env(env, ts.policy, s0, eps), per_env(env32, ts.policy, s0, eps),
+            per_env(env64, copy.deepcopy(ts.policy).double(), mpm_cast(s0, torch.float64),
+                    eps.double()))
+
+
+def mpm_bwd_bound(sim, B, K, cells, bottom):
+    """Least time in ms of one K2-bwd launch at B envs with stride K, and
+    what bounds it: the forward once and the adjoint (operations counted
+    above, for this run's touched cells), and the bytes of the history, the
+    cotangents in and out and the inputs."""
+    conf = sim.conf
+    P, steps, n_prim = sim.n_particles, conf.steps, len(sim.sdf_names)
+    flops = steps * (FLOP_MPM_BWD_PARTICLE * B * P + FLOP_MPM_BWD_CELL * cells
+                     + FLOP_MPM_BWD_FRICTION * bottom)
+    hist = B * math.ceil(steps / K) * 25 * P * 4
+    cot = 2 * B * P * 25 * 4 + 2 * B * n_prim * (steps + 1) * 7 * 4  # in and out
+    inputs = B * (3 + 1) * 4 + B * n_prim * (12 + 6 * steps) * 4 * 2  # and their cotangents
+    return bound(hist + cot + inputs, flops), flops, hist + cot + inputs
+
+
+def mpm_grad_phases(dev):
+    """The MPM training path: K2-bwd parity at K = 1 and K = 9 with its
+    witness, K2-seg against the plain forward, K2-bwd on the other
+    materials, whip_rope ``train``/``minimize`` at 1024 envs (the main
+    path), the ep_len-70 update with truncation, times, bounds and profile.
+    Returns the kernels-line entries of K2-bwd and K2-seg and K2-fwd's
+    training launches."""
+    import numpy as np
+    import torch
+
+    from unidom_torch import make_env
+    from unidom_torch.algorithms.apg import build_apg, train
+    from unidom_torch.envs.mpm_tasks import grad_test
+    from unidom_torch.ops.cuda import mpm_kernel as mk
+    from unidom_torch.ops.cuda.cloth_kernel import cloth_robot_step
+    from unidom_torch.ops.cuda.mpm_kernel import mpm_step
+
+    # ---- 16. K2-bwd parity: one whip_rope macro step's VJP at 1024 envs
+    t_phase = time.perf_counter()
+    env = make_env("whip_rope", batch_size=B_MAIN, device=dev)
+    sim = env.simulator
+    state = whip_rope_parity_state(env, dev)
+    action = torch.tensor(MPM_ACTION, device=dev).expand(B_MAIN, 6).contiguous()
+    with torch.no_grad():
+        cot = mpm_vjp_cot(mpm_step(sim, state, action))
+    rule_k = mk.checkpoint_stride(B_MAIN, sim.n_particles, sim.conf.steps)
+    log(f"[mpm-bwd-parity] checkpoint stride rule at B={B_MAIN}: K = {rule_k} (exact history "
+        f"{B_MAIN * sim.conf.steps * 25 * sim.n_particles * 4 / 2**20:.1f} MiB per macro step, "
+        f"budget {mk.HISTORY_BUDGET / 2**20:g} MiB)")
+    if rule_k != MPM_STRIDE:
+        fail(f"the stride rule gives K = {rule_k} at B={B_MAIN}, not {MPM_STRIDE}")
+    grads_k = {}
+    for K in (1, MPM_STRIDE):
+        mpm_step.bwd_launches = mpm_step.seg_launches = 0
+        grads_k[K] = mpm_vjp(lambda s, a: mpm_step(sim, s, a, ckpt_stride=K), state, action, cot)
+        torch.cuda.synchronize()
+        log(f"[mpm-bwd-parity] K={K}: {mpm_step.bwd_launches} K2-bwd launches, "
+            f"{mpm_step.seg_launches} K2-seg phases")
+        if mpm_step.bwd_launches != 1 or mpm_step.seg_launches != (
+                0 if K == 1 else math.ceil(sim.conf.steps / K)):
+            fail(f"K={K}: unexpected launch counts")
+        mpm_action_checks(f"mpm-bwd-parity K={K}", grads_k[K])
+    head = lambda ts: [t[:B_MPM_GRAD] for t in ts]  # noqa: E731
+    hs = mpm_slice_envs(state, B_MPM_GRAD)
+    psim = plain_mpm_sim(sim)
+    g32 = mpm_vjp(psim._step_plain, hs, action[:B_MPM_GRAD], head(cot))
+    g64 = mpm_vjp(psim._step_plain, mpm_cast(hs, torch.float64), action[:B_MPM_GRAD].double(),
+                  [c.double() for c in head(cot)])
+    bwd_err, gates = 0.0, {}
+    for K in (1, MPM_STRIDE):
+        bwd_err = max(bwd_err, per_env_gate(
+            f"mpm-bwd-parity K={K}", MPM_VJP_INPUTS, head(grads_k[K]), g32, g64,
+            zero=MPM_PC_ZERO + ("yield_stress",), gates=gates))
+    log("[mpm-bwd-parity] K=1 vs K=" + str(MPM_STRIDE) + ", max abs difference over the "
+        f"{B_MAIN} envs: " + ", ".join(
+            f"{n} {(a - b).abs().max().item():.3e}"
+            for n, a, b in zip(MPM_VJP_INPUTS, grads_k[1], grads_k[MPM_STRIDE])))
+    wit = mpm_vjp(psim._step_plain, hs.replace(mu=torch.zeros_like(hs.mu),
+                                                 lamda=torch.zeros_like(hs.lamda)),
+                  action[:B_MPM_GRAD], head(cot))
+    ratios = {}
+    for name, w, r in zip(MPM_VJP_INPUTS, wit, g64):
+        if name in gates:
+            e = (w.double() - r).reshape(B_MPM_GRAD, -1)
+            ratios[name] = e.norm(dim=1).median().item() / gates[name]
+    log("[mpm-bwd-parity] witness, the float32 plain VJP with mu = lamda = 0: median error vs "
+        "float64 over the gate " + ", ".join(f"{k} {v:.3e}x" for k, v in ratios.items())
+        + f" (the largest must be at least {WITNESS_MARGIN:g}x)")
+    if not max(ratios.values()) >= WITNESS_MARGIN:
+        fail("the witness without elastic stress passes the K2-bwd gate: the gate holds nothing")
+    del grads_k, g32, g64, wit
+    log(f"[mpm-bwd-parity] {time.perf_counter() - t_phase:.2f} s")
+
+    # ---- 17. K2-seg: one segment's carries against the plain forward's
+    t_phase = time.perf_counter()
+    with torch.no_grad():
+        prepared = sim.prepare(state, action)
+        _, hist = mk.launch(sim, prepared, MPM_STRIDE)
+        mpm_step.seg_launches = 0
+        seg = mk.mpm_step_seg(sim, prepared, hist, MPM_STRIDE, MPM_SEGMENT)
+        torch.cuda.synchronize()
+        if mpm_step.seg_launches != 1:
+            fail("mpm_step_seg did not count its launch")
+        t0 = MPM_SEGMENT * MPM_STRIDE
+        refs = {}
+        for dtype in (torch.float32, torch.float64):
+            s = mpm_cast(prepared, dtype)
+            carries = []
+            for f in range(t0 + seg.shape[1] - 1):
+                if f >= t0:
+                    carries.append(mk.pack_carry(s))
+                s = sim._substep(f, s)
+            carries.append(mk.pack_carry(s))
+            refs[dtype] = torch.stack(carries, 1)
+        seg_err = 0.0
+        for name, lo, hi in (("x", 0, 3), ("v", 3, 6), ("C", 6, 15), ("F", 15, 24), ("J", 24, 25)):
+            k, p, r = (t[:, :, lo:hi].double() for t in (seg, refs[torch.float32],
+                                                          refs[torch.float64]))
+            rms_k, rms_p = errors(k, r)[1], errors(p, r)[1]
+            seg_err = max(seg_err, (k - p).abs().max().item())
+            log(f"[mpm-seg] {name}: rms error vs float64 over the segment's {seg.shape[1]} "
+                f"carries: K2-seg {rms_k:.3e}, float32 plain {rms_p:.3e} (gate "
+                f"{PARITY_RATIO:g} x {rms_p:.3e} + {MPM_FLOOR[name]:g})")
+            if not torch.isfinite(k).all() or rms_k > PARITY_RATIO * rms_p + MPM_FLOOR[name]:
+                fail(f"K2-seg {name}: further from float64 than the plain forward")
+        seg_ms = cuda_ms(lambda: mk.mpm_step_seg(sim, prepared, hist, MPM_STRIDE, MPM_SEGMENT),
+                         reps=10)
+        def plain_segment():
+            s = prepared
+            for f in range(t0, t0 + MPM_STRIDE - 1):
+                s = sim._substep(f, s)
+            return s
+
+        seg_plain_ms = cuda_ms(plain_segment, reps=1, warmup=1)
+        seg_cells, seg_bottom = mpm_work(sim, prepared.x, prepared.x)
+        seg_flops = (MPM_STRIDE - 1) * (FLOP_MPM_PARTICLE * B_MAIN * sim.n_particles
+                                        + FLOP_MPM_CELL * seg_cells + FLOP_MPM_FRICTION * seg_bottom)
+        seg_bound = bound(nbytes([hist[:, 0], seg]) + nbytes(mk.pack_primitives(prepared)), seg_flops)
+    log(f"[mpm-seg] segment {MPM_SEGMENT} (substeps {t0}-{t0 + seg.shape[1] - 1}) at B={B_MAIN}: "
+        f"K2-seg {seg_ms:.4f} ms per launch, the plain forward of its {MPM_STRIDE - 1} substeps "
+        f"{seg_plain_ms:.2f} ms; bound {seg_bound[0]:.4f} ms ({seg_bound[1]}); "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    del seg, refs, hist, prepared
+
+    # ---- 18. K2-bwd on the materials whip_rope does not have, position control
+    t_phase = time.perf_counter()
+    for name in ("water", "plastic", "von_mises"):
+        csim, cs, ca = mpm_config_sim(name, B_MPM_CONFIG, dev, position_control=True)
+        with torch.no_grad():
+            ccot = mpm_vjp_cot(mpm_step(csim, cs, ca), seed=1)
+        mpm_step.bwd_launches = 0
+        gk = mpm_vjp(lambda s, a: mpm_step(csim, s, a), cs, ca, ccot)
+        if mpm_step.bwd_launches != 1:
+            fail(f"{name}: {mpm_step.bwd_launches} K2-bwd launches, not 1")
+        hcs, hca, hcot = mpm_slice_envs(cs, B_MPM_GRAD), ca[:B_MPM_GRAD], head(ccot)
+        zero = MPM_PC_ZERO + (("mu", "lamda") if name == "water" else ()) + (
+            () if name == "von_mises" else ("yield_stress",))
+        err = per_env_gate(
+            f"mpm-bwd-materials {name}", MPM_VJP_INPUTS, head(gk),
+            mpm_vjp(csim._step_plain, hcs, hca, hcot),
+            mpm_vjp(csim._step_plain, mpm_cast(hcs, torch.float64), hca.double(),
+                    [c.double() for c in hcot]), zero=zero)
+        mpm_action_checks(f"mpm-bwd-materials {name}", gk)
+        bwd_err = max(bwd_err, err)
+        log(f"[mpm-bwd-materials] {name}: B={B_MPM_CONFIG}, P={csim.n_particles}, materials "
+            f"{sorted(set(csim.material.tolist()))}, K = "
+            f"{mk.checkpoint_stride(B_MPM_CONFIG, csim.n_particles, csim.conf.steps)}")
+    mpm_step.bwd_launches = 0
+    grads = grad_test(n_chained_steps=2, n_iters=2, device="cuda", verbose=False)
+    log(f"[mpm-bwd-materials] grad_test on the card: {mpm_step.bwd_launches} K2-bwd launches, "
+        f"gradients {[g.round(6).tolist() for g in grads]}")
+    if mpm_step.bwd_launches != 4:
+        fail(f"grad_test launched K2-bwd {mpm_step.bwd_launches} times, not 4")
+    log(f"[mpm-bwd-materials] {time.perf_counter() - t_phase:.2f} s")
+    torch.cuda.empty_cache()
+
+    # ---- 19. the main path: whip_rope APG training at 1024 envs
+    t_phase = time.perf_counter()
+    logdir = ROOT / "build" / "chip_smoke_train_whip_rope"
+    shutil.rmtree(logdir, ignore_errors=True)
+    n_seg = math.ceil(sim.conf.steps / MPM_STRIDE)
+    eval_its = len(range(0, TRAIN_IT + 1, TRAIN_IT))
+    mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mpm_step.launches = mpm_step.bwd_launches = mpm_step.seg_launches = 0
+    cloth_robot_step.launches = cloth_robot_step.bwd_launches = 0
+    ts, history = train("whip_rope", EP_LEN, B_MAIN, max_it=TRAIN_IT, eval_freq=TRAIN_IT,
+                        num_eval_envs=20, logdir=str(logdir), device="cuda")
+    torch.cuda.synchronize()
+    train_launches = {"fwd": mpm_step.launches, "bwd": mpm_step.bwd_launches,
+                      "seg": mpm_step.seg_launches}
+    k1 = (cloth_robot_step.launches, cloth_robot_step.bwd_launches)
+    updates = TRAIN_IT + 1
+    expect = {"fwd": updates * EP_LEN + eval_its * 2 * env.max_steps, "bwd": updates * EP_LEN,
+              "seg": updates * EP_LEN * n_seg}
+    log(f"[mpm-train] train(whip_rope, ep_len {EP_LEN}, {B_MAIN} envs, {updates} updates, "
+        f"{eval_its} evals of 20 envs): launches {train_launches} (expected {expect}), K1 {k1}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+        f"({mem_before / 1e9:.3f} GB held before)")
+    if train_launches != expect or k1 != (0, 0):
+        fail(f"whip_rope training launched K2 {train_launches} and K1 {k1} times")
+    for rec in history:
+        log(f"[mpm-train] {json.dumps(rec)}")
+        if not all(math.isfinite(rec[k]) for k in ("train_reward", "grad_norm", "sps")):
+            fail(f"iteration {rec['it']}: non-finite metrics")
+        if rec["grad_norm"] <= 0:
+            fail(f"iteration {rec['it']}: zero gradient")
+    first = torch.load(logdir / "apg_whip_rope_0.pt", map_location=dev, weights_only=True)
+    moved = max((p - first["policy"][k]).abs().max().item()
+                for k, p in ts.policy.state_dict().items())
+    log(f"[mpm-train] parameters moved up to {moved:.3e}; {time.perf_counter() - t_phase:.2f} s")
+    if not moved > 0:
+        fail("whip_rope training left the parameters where they were")
+    del ts, history
+
+    init_ts, minimize, reset_batch, _ = build_apg(env, EP_LEN, device=dev)
+    ts = init_ts(0)
+    first_state = reset_batch(torch.Generator().manual_seed(0))
+    params0 = [p.detach().clone() for p in ts.policy.parameters()]
+    seconds = []
+    for rep in range(2):
+        mpm_step.launches = mpm_step.bwd_launches = mpm_step.seg_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, m = minimize(ts, first_state)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        per_update = (mpm_step.launches, mpm_step.bwd_launches, mpm_step.seg_launches)
+        if per_update != (EP_LEN, EP_LEN, EP_LEN * n_seg):
+            fail(f"one whip_rope minimize launched K2 (fwd, bwd, seg) {per_update} times")
+        m = {k: v.item() for k, v in m.items()}
+        if not all(math.isfinite(v) for v in m.values()) or m["grad_norm"] <= 0:
+            fail(f"whip_rope minimize: metrics {m}")
+    peak_train = torch.cuda.max_memory_allocated()
+    moved = max((p - q).abs().max().item() for p, q in zip(ts.policy.parameters(), params0))
+    if not moved > 0:
+        fail("whip_rope minimize left the parameters where they were")
+    train_sps = EP_LEN * B_MAIN / seconds[1]
+    log(f"[mpm-train] minimize B={B_MAIN}: K2 (fwd, bwd, seg phases) {per_update} per update; "
+        f"metrics {m}; parameters moved up to {moved:.3e}; {[round(t, 4) for t in seconds]} s "
+        f"per update, {train_sps:.1f} env-steps/s (second update); peak memory "
+        f"{peak_train / 1e9:.3f} GB")
+    profile_device(f"minimize whip_rope B={B_MAIN}", lambda: minimize(ts, first_state))
+    del ts, first_state, params0
+    torch.cuda.empty_cache()
+
+    # one update's policy gradient through the kernels against the plain step
+    t_phase = time.perf_counter()
+    genv = make_env("whip_rope", batch_size=B_MPM_GRAD, device=dev)
+    k, p, r = mpm_policy_grads(genv, 0)
+    grad_err = per_env_gate(f"mpm-policy-grad B={B_MPM_GRAD}", ["policy"], [k], [p], [r])
+    if (r.norm(dim=1) == 0).any():
+        fail("a float64 per-env policy gradient is 0")
+    log(f"[mpm-policy-grad] {time.perf_counter() - t_phase:.2f} s")
+    del genv, k, p, r
+
+    # ---- 20. the configuration that learns: ep_len 70, truncation 10
+    t_phase = time.perf_counter()
+    init_ts, minimize, reset_batch, _ = build_apg(env, env.max_steps, truncation_length=10,
+                                                  device=dev)
+    ts = init_ts(0)
+    first_state = reset_batch(torch.Generator().manual_seed(0))
+    mpm_step.launches = mpm_step.bwd_launches = mpm_step.seg_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, m = minimize(ts, first_state)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    m = {k: v.item() for k, v in m.items()}
+    counts = (mpm_step.launches, mpm_step.bwd_launches, mpm_step.seg_launches)
+    log(f"[mpm-train-long] minimize whip_rope ep_len {env.max_steps}, truncation 10, "
+        f"B={B_MAIN}, stride K = {rule_k}: {long_s:.3f} s, "
+        f"{env.max_steps * B_MAIN / long_s:.1f} env-steps/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; K2 (fwd, bwd, seg phases) {counts}; "
+        f"metrics {m}")
+    if counts != (env.max_steps, env.max_steps, env.max_steps * n_seg):
+        fail(f"the ep_len-{env.max_steps} update launched K2 {counts} times")
+    if not all(math.isfinite(v) for v in m.values()) or m["grad_norm"] <= 0:
+        fail(f"the ep_len-{env.max_steps} update: metrics {m}")
+    del ts, first_state
+    torch.cuda.empty_cache()
+    log(f"[mpm-train-long] {time.perf_counter() - t_phase:.2f} s")
+
+    # ---- 21. K2-bwd times and bounds
+    t_phase = time.perf_counter()
+    bwd_times, bwd_bounds = {}, {}
+    for B in (B_MAIN, B_WIDE):
+        wenv = env if B == B_MAIN else make_env("whip_rope", batch_size=B, device=dev)
+        wsim = wenv.simulator
+        ws = wsim.prepare(whip_rope_parity_state(wenv, dev), action[:1].expand(B, 6))
+        K = mk.checkpoint_stride(B, wsim.n_particles, wsim.conf.steps)
+        with torch.no_grad():
+            fields, frame, vw = mk._inputs(wsim, ws)
+            wout, hist = mk.launch(wsim, ws, K)
+            wcot = [c.contiguous() for c in mpm_vjp_cot(wout)]
+            wcot[5], wcot[6] = (torch.stack([t], 1).contiguous() for t in wcot[5:])
+            bwd_times[B] = cuda_ms(lambda: mk._backward(wsim, fields, frame, vw, hist, K, wcot),
+                                   reps=5)
+            if B == B_MAIN:  # the exact history: no K2-seg phases
+                _, hist1 = mk.launch(wsim, ws, 1)
+                exact_ms = cuda_ms(lambda: mk._backward(wsim, fields, frame, vw, hist1, 1, wcot),
+                                   reps=5)
+                log(f"[time] K2-bwd at K = 1, one whip_rope macro step, B={B}: {exact_ms:.4f} ms")
+                del hist1
+        cells, bottom = mpm_work(wsim, ws.x, wout.x)
+        bwd_bounds[B] = mpm_bwd_bound(wsim, B, K, cells, bottom)
+        log(f"[time] K2-bwd (K = {K}, with its {math.ceil(wsim.conf.steps / K) if K > 1 else 0} "
+            f"K2-seg phases), one whip_rope macro step, B={B}: {bwd_times[B]:.4f} ms; bound "
+            f"{bwd_bounds[B][0][0]:.4f} ms ({bwd_bounds[B][0][1]}: {FLOP_MPM_BWD_PARTICLE} "
+            f"operations per particle-substep, {cells / B:.1f} touched cells per env and "
+            f"substep, {bwd_bounds[B][1] / 1e9:.3f} GFLOP, {bwd_bounds[B][2] / 1e6:.2f} MB); "
+            f"K2-bwd at {100 * bwd_bounds[B][0][0] / bwd_times[B]:.2f}% of it")
+        del wenv, wsim, ws, wout, hist, wcot, fields, frame, vw
+        torch.cuda.empty_cache()
+    with torch.enable_grad():
+        plain_ms = cuda_ms(lambda: mpm_vjp(psim._step_plain, hs, action[:B_MPM_GRAD], head(cot)),
+                           reps=1, warmup=1)
+    log(f"[time] the plain VJP (forward and backward, scatter transfer) at B={B_MPM_GRAD}: "
+        f"{plain_ms:.2f} ms; phase 21 in {time.perf_counter() - t_phase:.2f} s")
+
+    bwd_entry = {
+        "name": "mpm_step_bwd",
+        "route": "cuda",
+        "source": "unidom_torch/csrc/mpm_step.cu",
+        "replaces": "unidom_tpu/ops/pallas/mpm_kernel.py:780",
+        "launches": train_launches["bwd"],
+        "launches_by_path": {"whip_rope_train": train_launches["bwd"]},
+        "max_abs_err": max(bwd_err, grad_err),
+        "ms": bwd_times[B_MAIN],
+        "plain_ms": plain_ms,
+        "bound_ms": bwd_bounds[B_MAIN][0][0],
+        "bound_by": bwd_bounds[B_MAIN][0][1],
+        "library_ms": None,
+    }
+    seg_entry = {
+        "name": "mpm_step_seg",
+        "route": "cuda",
+        "source": "unidom_torch/csrc/mpm_step.cu",
+        "replaces": "unidom_tpu/ops/pallas/mpm_kernel.py:834",
+        "launches": train_launches["seg"],
+        "launches_by_path": {"whip_rope_train": train_launches["seg"]},
+        "max_abs_err": seg_err,
+        "ms": seg_ms,
+        "plain_ms": seg_plain_ms,
+        "bound_ms": seg_bound[0],
+        "bound_by": seg_bound[1],
+        "library_ms": None,
+    }
+    return bwd_entry, seg_entry, train_launches["fwd"]
+
+
 def main():
     import torch
 
@@ -918,8 +1409,12 @@ def main():
             if any(w in line for w in ("entry function", "registers", "spill", "smem")):
                 log(f"[build] {source} ptxas: {line.strip()}")
 
-    # ---- the MPM path (phases 11-15, see mpm_phases)
+    # ---- the MPM paths (phases 11-15, see mpm_phases; 16-21, mpm_grad_phases)
     mpm_entry, whip_k1 = mpm_phases(dev)
+    torch.cuda.empty_cache()
+    bwd_entry, seg_entry, whip_train_fwd = mpm_grad_phases(dev)
+    mpm_entry["launches"] = whip_train_fwd
+    mpm_entry["launches_by_path"]["whip_rope_train"] = whip_train_fwd
     torch.cuda.empty_cache()
 
     t_phase = time.perf_counter()
@@ -1320,7 +1815,7 @@ def main():
         "bound_ms": bounds[B_MAIN]["bwd"][0],
         "bound_by": bounds[B_MAIN]["bwd"][1],
         "library_ms": None,
-    }, mpm_entry]}))
+    }, mpm_entry, bwd_entry, seg_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 
 

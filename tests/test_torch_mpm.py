@@ -376,14 +376,16 @@ def test_plain_step_matches_jax(step_refs, reference, transfer):
 
 
 def test_cpu_step_launches_no_kernel_and_its_backward_raises():
+    """The CPU step launches no kernel, and its backward (autograd of the
+    plain step through the SVD's degenerate-safe backward; it raised until
+    that was ported) is finite, from F = I."""
     sim, state = _torch_sim("pc_elastic", "scatter")
-    before = mpm_step.launches
-    out = mpm_step(sim, state.replace(C=state.C.clone().requires_grad_()),
-                   torch.from_numpy(_action()))
-    assert mpm_step.launches == before
-    # the SVD's degenerate-safe backward is not ported: no silent gradient
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.x.sum().backward()
+    before = (mpm_step.launches, mpm_step.bwd_launches, mpm_step.seg_launches)
+    C = state.C.clone().requires_grad_()
+    out = mpm_step(sim, state.replace(C=C), torch.from_numpy(_action()))
+    out.x.sum().backward()
+    assert (mpm_step.launches, mpm_step.bwd_launches, mpm_step.seg_launches) == before
+    assert torch.isfinite(C.grad).all() and C.grad.abs().max() > 0
 
 
 def test_kernel_wrapper_raises_on_what_it_does_not_take():

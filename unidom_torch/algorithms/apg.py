@@ -13,12 +13,11 @@ Counterpart of ``unidom_tpu/algorithms/apg.py`` on one device:
 
 On CUDA tensors every robot step of a cloth rollout runs the cloth kernel
 forward and, in the backward pass, the cloth kernel backward; every macro
-step of an MPM rollout (``run_eval`` of whip_rope) runs the MPM kernel,
-forward only.
+step of an MPM rollout (whip_rope) runs the MPM kernel forward (K2-fwd) and,
+when training, the MPM kernel backward (K2-bwd) in the backward pass.
 """
 
 import argparse
-import dataclasses
 import json
 import os
 import time
@@ -36,7 +35,7 @@ from unidom_torch.models.normalizer import (
     normalize,
     update_normalizer,
 )
-from unidom_torch.ops.gradops import global_norm, global_norm_clip, nan_to_num_tree
+from unidom_torch.ops.gradops import global_norm, global_norm_clip, nan_to_num_tree, tree_flatten
 
 ADAM = dict(betas=(0.9, 0.999), eps=1e-8)  # optax.adam's defaults
 LR_END = 1e-5  # end of the linear learning-rate decay
@@ -71,8 +70,10 @@ def _noise(generator, env, state):
 
 
 def _stop_gradient(state):
-    return state.replace(**{f.name: getattr(state, f.name).detach()
-                            for f in dataclasses.fields(state)})
+    """``state`` with every tensor leaf detached (an MPM state nests its
+    primitives in a tuple)."""
+    leaves, rebuild = tree_flatten(state)
+    return rebuild([t.detach() for t in leaves])
 
 
 @torch.no_grad()
@@ -189,10 +190,14 @@ def build_apg(
     minimize.debug = {"loss_grad": loss_grad, "learning_rate_at": learning_rate_at}
 
     def reset_batch(generator=None):
-        """First state of an iteration: ``env.reset(generator)``."""
-        if env.reset_mode != "reset":
-            raise NotImplementedError(f"reset_mode {env.reset_mode!r}")
-        return env.reset(generator)[1]
+        """First state of an iteration: ``env.reset(generator)`` for
+        ``reset_mode == "reset"`` envs (cloth), ``env.auto_reset`` of the
+        env's initial state for ``"auto_reset"`` envs (MPM)."""
+        if env.reset_mode == "reset":
+            return env.reset(generator)[1]
+        if env.reset_mode == "auto_reset":
+            return env.auto_reset(env.init_state, generator)
+        raise NotImplementedError(f"reset_mode {env.reset_mode!r}")
 
     return init_training_state, minimize, reset_batch, run_eval
 
@@ -276,15 +281,17 @@ def train(
         ts = _restore(ts, resume, device)
         print(f"resumed from {resume}")
 
-    # Cloth envs keep one reset for every iteration (reference parity);
-    # --randomize_reset draws a new one each iteration.
+    # Cloth envs ("reset") keep one reset for every iteration (reference
+    # parity) unless --randomize_reset; "auto_reset" envs (MPM) draw a fresh
+    # one each iteration.
+    fixed_reset = env.reset_mode == "reset" and not randomize_reset
     reset_gen = torch.Generator().manual_seed(seed)
     history = []
     best_eval = -float("inf")
     t_total = time.time()
     with open(os.path.join(logdir, "metrics.jsonl"), "a") as metrics_file:
         for it in range(max_it + 1):
-            if not randomize_reset:
+            if fixed_reset:
                 reset_gen.manual_seed(seed)
             first_state = reset_batch(reset_gen)
 
@@ -353,7 +360,7 @@ def main(argv=None):
     parser.add_argument("--randomize_reset", action="store_true",
                         help="draw a fresh reset every iteration for cloth envs")
     parser.add_argument("--device", default="cuda",
-                        help="torch device; 'cpu' runs the plain cloth step on the host")
+                        help="torch device; 'cpu' runs the plain simulator steps on the host")
     args = parser.parse_args(argv)
 
     train(

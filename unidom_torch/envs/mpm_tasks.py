@@ -4,8 +4,9 @@ Counterpart of ``unidom_tpu/envs/mpm_tasks.py`` for whip_rope: a
 position-controlled box primitive whipping an elastic rope on a 64-grid
 with a 32^3 focus region, 70 substeps per macro action and 70 macro steps
 per episode, rewarded by the L2 distance to a recorded goal
-(``unidom_tpu/assets/goals/whip_rope/goal.npy``). ``ShapeRopeConf`` is the
-shape_rope simulator's configuration; its env waits for a later slice.
+(``unidom_tpu/assets/goals/whip_rope/goal.npy``), and ``grad_test``, its
+gradient sanity check. ``ShapeRopeConf`` is the shape_rope simulator's
+configuration; its env waits for a later slice.
 """
 
 import dataclasses
@@ -16,6 +17,7 @@ import torch
 from unidom_torch.engine.mpm import ELASTIC, MPMConf
 from unidom_torch.envs.base_mpm import MPMEnv
 from unidom_torch.envs.cloth_tasks import goal_path
+from unidom_torch.ops.gradops import scrub_grad, tree_flatten
 
 WhipRopeConf = MPMConf(
     n_grid=64,
@@ -29,6 +31,10 @@ WhipRopeConf = MPMConf(
     task="whip_rope",
     goal_path=goal_path("whip_rope"),
 )
+
+# grad_test's small whip_rope: a 32-grid with a 16^3 focus region, 8 substeps
+GRAD_TEST_CONF = MPMConf(n_grid=32, dt=2e-4, steps=8, E=100.0, nu=0.1, res=(16, 16, 16),
+                         task="grad_test", goal_path="")
 
 ShapeRopeConf = MPMConf(
     n_grid=128,
@@ -89,3 +95,38 @@ class WhipRopeEnv(MPMEnv):
         """(obs, state): the initial state under ``auto_reset``'s shift."""
         state = self.auto_reset(self.init_state, generator)
         return self.get_obs(state), state
+
+
+def grad_test(env=None, n_chained_steps=5, n_iters=3, device="cuda", verbose=True):
+    """whip_rope's gradient sanity check (the JAX package's ``grad_test``,
+    scripted actions): the gradient of the rope's summed positions after
+    ``n_chained_steps`` chained ``step_diff`` calls with respect to the
+    action, with ``scrub_grad`` on every float tensor of the state and on
+    the action before each step; ``n_iters`` times, each from where the last
+    ended. Asserts every gradient finite and not all of them zero, and
+    returns them as numpy arrays (B, 6). On CUDA tensors every macro step's
+    gradient goes through the MPM backward kernel."""
+    env = env or WhipRopeEnv(batch_size=1, seed=1, max_steps=n_chained_steps + 1,
+                             conf=GRAD_TEST_CONF, device=device)
+    _, state = env.reset(torch.Generator().manual_seed(1))
+    results = []
+    for i in range(n_iters):
+        actions = torch.tensor([[0.3, 0.0, 0.5, 0.0, 0.0, 0.0]], device=env.device)
+        actions = actions.repeat(env.batch_size, 1).requires_grad_()
+        a, s = actions, state
+        for _ in range(n_chained_steps):
+            leaves, rebuild = tree_flatten(s)
+            s = rebuild([scrub_grad(t) for t in leaves])
+            a = scrub_grad(a)
+            _, _, _, info = env.step_diff(a, s)
+            s = info["state"]
+        (g,) = torch.autograd.grad(s.x.sum(), actions)
+        leaves, rebuild = tree_flatten(s)
+        state = rebuild([t.detach() for t in leaves])
+        g = g.cpu().numpy()
+        assert np.isfinite(g).all(), f"non-finite grad at iter {i}"
+        results.append(g)
+        if verbose:
+            print(f"grad_test iter {i}: grad {g.round(6)}")
+    assert any(np.abs(r).sum() > 0 for r in results), "all-zero gradients"
+    return results

@@ -1,24 +1,35 @@
-"""MPM macro step on the GPU: wrapper of the CUDA kernel
+"""MPM macro step on the GPU: wrapper of the CUDA kernels of
 ``unidom_torch/csrc/mpm_step.cu``.
 
-Replaces the forward of ``build_mpm_step_kernel`` of
-``unidom_tpu/ops/pallas/mpm_kernel.py`` (``fwd_call`` -> ``fwd_kernel``).
-``mpm_step`` runs the plain PyTorch macro step
-(``MPMSimulator._step_plain``) for CPU tensors; for CUDA tensors it runs
-the macro step's head (``MPMSimulator.prepare``: scrub, action clamp and
-clip, ``set_action``) and launches the kernel for the ``conf.steps``
-substeps, or raises. ``mpm_step.launches`` counts kernel launches.
+Replaces ``build_mpm_step_kernel`` of ``unidom_tpu/ops/pallas/mpm_kernel.py``:
+K2-fwd (``fwd_call`` -> ``fwd_kernel``, one macro step of ``conf.steps``
+substeps, writing the carry every K substeps when a gradient is wanted),
+K2-seg (``seg_hist_call``, a segment's carries recomputed from its
+checkpoint) and K2-bwd (``bwd_step_call`` with the reverse scan
+``_core_bwd``, the macro step's adjoint; one launch walks every substep, with
+K2-seg as a phase of each segment when K > 1).
 
-The macro step's backward (the kernel's, and the plain step's SVD) is not
-ported yet, so on CUDA tensors that require a gradient ``mpm_step`` raises
-instead of silently differentiating something else; on CPU tensors the
-plain step's SVD raises in the backward pass. The particle state crosses in
-the simulator's layout ((B, P, 3), (B, P, 3, 3), (B, P)); the primitives
-are packed into two small tensors.
+``mpm_step`` runs the plain PyTorch macro step (``MPMSimulator._step_plain``,
+differentiated by autograd) for CPU tensors. For CUDA tensors it runs the
+macro step's head (``MPMSimulator.prepare``: scrub, action clamp and clip,
+``set_action``, in torch) and the kernels, or raises: under ``no_grad`` (or
+when nothing requires a gradient) K2-fwd without history; otherwise
+``_MPMStepFn``, whose backward launches K2-bwd. The backward covers position
+control; collision's adjoint comes with the shape_rope slice, and a gradient
+request under collision raises. ``mpm_step.launches``,
+``mpm_step.bwd_launches`` and ``mpm_step.seg_launches`` count launches of
+K2-fwd and K2-bwd and the K2-seg phases that K2-bwd ran (plus launches of
+``mpm_step_seg``).
+
+The particle state crosses in the simulator's layout ((B, P, 3),
+(B, P, 3, 3), (B, P)); the primitives are packed into two small tensors; the
+history is (B, ceil(steps / K), 25, P), component-major as the kernels'
+shared memory.
 """
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -27,30 +38,59 @@ from unidom_torch.ops.gradops import tree_flatten
 
 SOURCE = "mpm_step.cu"
 
-# What the kernel's design holds (see the source's header): particles whose
+# What the kernels' design holds (see the source's header): particles whose
 # state lives in one block's shared memory, SDFs it evaluates, primitives.
 MAX_PARTICLES = 1024
 MAX_CELLS = 196608  # the fused TPU kernel's own ceiling (cells x 32 bytes <= 6 MB)
 MAX_PRIMITIVES = 4
 SDF_KINDS = {"box": 0, "container": 1}
 PRIM_FRAME_COLS = 12  # position (3), rotation (4), size (3), friction, softness
+N_COMP = 25  # x 3, v 3, C 9, F 9, J 1
+
+# The checkpoint stride rule. K2-bwd needs each substep's input carry. K = 1
+# keeps all of them: B * steps * 25 * P * 4 bytes per macro step, which
+# autograd holds for every macro step of an episode until the loss's
+# backward. For whip_rope at 1024 envs that is 480 MB per macro step and
+# 33.6 GB over the 70 macro steps of an episode that learns. Above
+# HISTORY_BUDGET per macro step the kernels keep a checkpoint every
+# K = ceil(sqrt(steps)) substeps instead (whip_rope: 9, 8 checkpoints, 55 MB
+# per macro step at 1024 envs, 3.8 GB over the episode) and K2-bwd recomputes
+# each segment (one more forward per macro step). 64 MB keeps a 70-step
+# episode's history under ~4.5 GB at any batch, and leaves the CPU-sized
+# batches of the tests on K = 1.
+HISTORY_BUDGET = 64 * 2**20
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FWD, _SEG, _BWD = 0, 1, 2
+
+
+def checkpoint_stride(B, P, steps):
+    """K = 1 when one macro step's exact history fits HISTORY_BUDGET, else
+    ceil(sqrt(steps))."""
+    if B * steps * N_COMP * P * 4 <= HISTORY_BUDGET:
+        return 1
+    return math.ceil(math.sqrt(steps))
 
 
 @functools.cache
 def _lib():
     lib = load_library(SOURCE)
-    lib.mpm_step_fwd.argtypes = (
+    lib.mpm_step_launch.argtypes = (
         [_PTR] * 5 + [_PTR, _INT, _INT] * 3 + [_PTR, _INT] + [_PTR] * 4 + [_PTR] * 9
-        + [_INT] * 10 + [_FLOAT] * 8 + [_INT, _PTR]
+        + [_PTR, _INT] + [_INT] * 10 + [_FLOAT] * 8 + [_INT, _PTR]
+        + [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT]
     )
-    lib.mpm_step_fwd.restype = ctypes.c_int
-    lib.mpm_step_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.mpm_step_launch.restype = ctypes.c_int
+    lib.mpm_step_smem_bytes.argtypes = [_INT] * 5
     lib.mpm_step_smem_bytes.restype = ctypes.c_size_t
     lib.unidom_cuda_error_string.argtypes = [ctypes.c_int]
     lib.unidom_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _device_and_stream(dev):
+    return dev.index if dev.index is not None else torch.cuda.current_device(), \
+        torch.cuda.current_stream(dev).cuda_stream
 
 
 def _check(name, t, shape, device):
@@ -106,15 +146,71 @@ def pack_primitives(state):
     return frame.contiguous(), vw.contiguous()
 
 
-def launch(sim, state):
-    """Launch the kernel on ``state``, the output of ``sim.prepare``: the
-    ``conf.steps`` substeps and the buffers' row 0 <- row steps. Returns the
-    new state. Raises on anything the kernel does not take."""
-    check_supported(sim)
+def pack_carry(state):
+    """The particle state as the kernels' history holds it: (B, 25, P)."""
+    B, P = state.x.shape[:2]
+    return torch.cat([state.x, state.v, state.C.reshape(B, P, 9), state.F.reshape(B, P, 9),
+                      state.J[..., None]], -1).transpose(1, 2)
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+def _pointer_array(tensors):
+    """A C array of the tensors' data pointers (None when ``tensors`` is)."""
+    if tensors is None:
+        return None
+    return ctypes.cast((ctypes.c_void_p * len(tensors))(*map(_ptr, tensors)), ctypes.c_void_p)
+
+
+def _call(sim, fields, frame, vw, *, what, K=1, hist=None, outs=(None,) * 7, segment=0,
+          seg_out=None, bwd_in=None, bwd_out=None, scratch=None, list_cap=0):
+    """One ``mpm_step_launch``: K2-fwd, K2-seg or K2-bwd (``what``) on the
+    forward's inputs ``fields`` (x, v, C, F, J, mu, lamda, yield_stress,
+    friction; x..J may be None but for K2-fwd)."""
     conf = sim.conf
+    B, P, dev = frame.shape[0], sim.n_particles, frame.device
+    n_prim, steps = frame.shape[1], conf.steps
+    rx, ry, rz = conf.res
+    cells = rx * ry * rz
+    grid = torch.empty((B, cells, 4), dtype=torch.float32, device=dev)
+    mark = torch.empty((B, cells), dtype=torch.int32, device=dev)
+    sdf_kinds = sum(SDF_KINDS[n] << i for i, n in enumerate(sim.sdf_names))
+    gravity = [float(g) for g in conf.gravity]
+    device, stream = _device_and_stream(dev)
+    lib = _lib()
+    err = lib.mpm_step_launch(
+        *(_ptr(fields[n]) for n in ("x", "v", "C", "F", "J")),
+        *_material("mu", fields["mu"], B, P, dev),
+        *_material("lamda", fields["lamda"], B, P, dev),
+        *_material("yield_stress", fields["yield_stress"], B, P, dev),
+        fields["friction"].data_ptr(), fields["friction"].stride(0),
+        sim._h.data_ptr(), sim._material.data_ptr(), frame.data_ptr(), vw.data_ptr(),
+        *(_ptr(t) for t in outs), grid.data_ptr(), mark.data_ptr(),
+        _ptr(hist), K,
+        B, P, n_prim, steps, rx, ry, rz, conf.n_grid, int(sim.use_position_control), sdf_kinds,
+        conf.dt, conf.dx, -conf.dt * conf.p_vol * 4.0, conf.dx**2, conf.p_mass, *gravity,
+        device, stream,
+        what, segment, _ptr(seg_out), _pointer_array(bwd_in), _pointer_array(bwd_out),
+        _ptr(scratch), list_cap,
+    )
+    if err != 0:
+        msg = lib.unidom_cuda_error_string(err).decode()
+        name = ("K2-fwd", "K2-seg", "K2-bwd")[what]
+        raise RuntimeError(
+            f"mpm_step {name} launch failed: {msg} (error {err}; B={B}, P={P}, res={conf.res}, "
+            f"K={K}, dynamic shared memory "
+            f"{lib.mpm_step_smem_bytes(P, cells, steps, n_prim, int(what == _BWD))} bytes)")
+
+
+def _inputs(sim, state):
+    """Check ``state`` (the output of ``sim.prepare``) against what the
+    kernel takes. Returns (fields, frame, vw)."""
+    check_supported(sim)
     x = state.x
     B, P, dev = x.shape[0], sim.n_particles, x.device
-    n_prim, steps = len(state.primitives), conf.steps
+    n_prim, steps = len(state.primitives), sim.conf.steps
     if n_prim != len(sim.sdf_names):
         raise ValueError(f"the state has {n_prim} primitives, the simulator {len(sim.sdf_names)}")
     for name, shape in (("x", (B, P, 3)), ("v", (B, P, 3)), ("C", (B, P, 3, 3)),
@@ -127,54 +223,139 @@ def launch(sim, state):
     _check("hardness", sim._h, (P,), dev)
     if sim._material.dtype != torch.int32 or sim._material.device != dev:
         raise TypeError("the material codes must be int32 on the state's device")
+    fields = {n: getattr(state, n) for n in ("x", "v", "C", "F", "J", "mu", "lamda",
+                                             "yield_stress", "friction")}
+    return fields, frame, vw
 
-    rx, ry, rz = conf.res
-    cells = rx * ry * rz
-    outs = [torch.empty_like(getattr(state, n)) for n in ("x", "v", "C", "F", "J")]
+
+def _forward(sim, fields, frame, vw, K=1, hist=None):
+    """K2-fwd. Returns (x, v, C, F, J, traj_pos, traj_rot)."""
+    B, n_prim, steps = frame.shape[0], frame.shape[1], sim.conf.steps
+    dev = frame.device
+    outs = [torch.empty_like(fields[n]) for n in ("x", "v", "C", "F", "J")]
     traj_pos = torch.empty((B, n_prim, steps + 1, 3), dtype=torch.float32, device=dev)
     traj_rot = torch.empty((B, n_prim, steps + 1, 4), dtype=torch.float32, device=dev)
-    grid = torch.empty((B, cells, 4), dtype=torch.float32, device=dev)
-    mark = torch.empty((B, cells), dtype=torch.int32, device=dev)
-    sdf_kinds = sum(SDF_KINDS[n] << i for i, n in enumerate(sim.sdf_names))
-    gravity = [float(g) for g in conf.gravity]
-
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.mpm_step_fwd(
-            *(state.x.data_ptr(), state.v.data_ptr(), state.C.data_ptr(), state.F.data_ptr(),
-              state.J.data_ptr()),
-            *_material("mu", state.mu, B, P, dev),
-            *_material("lamda", state.lamda, B, P, dev),
-            *_material("yield_stress", state.yield_stress, B, P, dev),
-            state.friction.data_ptr(), state.friction.stride(0),
-            sim._h.data_ptr(), sim._material.data_ptr(), frame.data_ptr(), vw.data_ptr(),
-            *(t.data_ptr() for t in outs), traj_pos.data_ptr(), traj_rot.data_ptr(),
-            grid.data_ptr(), mark.data_ptr(),
-            B, P, n_prim, steps, rx, ry, rz, conf.n_grid, int(sim.use_position_control),
-            sdf_kinds,
-            conf.dt, conf.dx, -conf.dt * conf.p_vol * 4.0, conf.dx**2, conf.p_mass, *gravity,
-            dev.index, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        msg = lib.unidom_cuda_error_string(err).decode()
-        raise RuntimeError(
-            f"mpm_step kernel launch failed: {msg} (error {err}; B={B}, P={P}, res={conf.res}, "
-            f"dynamic shared memory {lib.mpm_step_smem_bytes(P, cells)} bytes)")
+    _call(sim, fields, frame, vw, what=_FWD, K=K, hist=hist, outs=(*outs, traj_pos, traj_rot))
     mpm_step.launches += 1
-    x, v, C, F, J = outs
+    return (*outs, traj_pos, traj_rot)
+
+
+def _rebuild(state, outs):
+    x, v, C, F, J, traj_pos, traj_rot = outs
     prims = tuple(p.replace(position=traj_pos[:, i], rotation=traj_rot[:, i])
                   for i, p in enumerate(state.primitives))
     return state.replace(x=x, v=v, C=C, F=F, J=J, primitives=prims)
+
+
+def _history(sim, B, K):
+    steps, P = sim.conf.steps, sim.n_particles
+    return torch.empty((B, math.ceil(steps / K), N_COMP, P), dtype=torch.float32,
+                       device=sim._h.device)
+
+
+def launch(sim, state, ckpt_stride=None):
+    """K2-fwd on ``state``, the output of ``sim.prepare``: the ``conf.steps``
+    substeps and the buffers' row 0 <- row steps. Returns the new state, or
+    with ``ckpt_stride`` K, (the new state, the history of a checkpoint
+    every K substeps). Raises on anything the kernel does not take."""
+    fields, frame, vw = _inputs(sim, state)
+    if ckpt_stride is None:
+        return _rebuild(state, _forward(sim, fields, frame, vw))
+    hist = _history(sim, frame.shape[0], ckpt_stride)
+    return _rebuild(state, _forward(sim, fields, frame, vw, ckpt_stride, hist)), hist
+
+
+def mpm_step_seg(sim, state, hist, ckpt_stride, segment):
+    """K2-seg alone: segment ``segment`` of the macro step from ``state``
+    (the output of ``sim.prepare``) recomputed from its checkpoint in
+    ``hist`` (``launch(..., ckpt_stride)``'s). Returns its L input carries,
+    (B, L, 25, P)."""
+    fields, frame, vw = _inputs(sim, state)
+    K, steps = ckpt_stride, sim.conf.steps
+    L = min(K, steps - segment * K)
+    out = torch.empty((frame.shape[0], L, N_COMP, sim.n_particles), dtype=torch.float32,
+                      device=frame.device)
+    _call(sim, fields, frame, vw, what=_SEG, K=K, hist=hist, segment=segment, seg_out=out)
+    mpm_step.seg_launches += 1
+    return out
+
+
+class _MPMStepFn(torch.autograd.Function):
+    """One macro step's substeps through K2-fwd, with K2-bwd as its backward.
+    Inputs: the simulator, the checkpoint stride, x, v, C, F, J, mu, lamda,
+    yield_stress, friction, the primitives' frame and per-substep v and w.
+    Outputs: x, v, C, F, J and the (B, n_prim, steps + 1, 3 / 4) position
+    and rotation rows."""
+
+    @staticmethod
+    def forward(ctx, sim, K, x, v, C, F, J, mu, lamda, ys, friction, frame, vw):
+        fields = dict(x=x, v=v, C=C, F=F, J=J, mu=mu, lamda=lamda, yield_stress=ys,
+                      friction=friction)
+        hist = _history(sim, x.shape[0], K)
+        outs = _forward(sim, fields, frame, vw, K, hist)
+        ctx.sim, ctx.K = sim, K
+        ctx.save_for_backward(hist, mu, lamda, ys, friction, frame, vw)
+        return outs
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *cots):
+        hist, mu, lamda, ys, friction, frame, vw = ctx.saved_tensors
+        fields = dict(x=None, v=None, C=None, F=None, J=None, mu=mu, lamda=lamda,
+                      yield_stress=ys, friction=friction)
+        grads = _backward(ctx.sim, fields, frame, vw, hist, ctx.K,
+                          [c.contiguous() for c in cots])
+        return (None, None, *grads)
+
+
+def _backward(sim, fields, frame, vw, hist, K, cots):
+    """K2-bwd: the cotangents of x, v, C, F, J, mu, lamda, yield_stress,
+    friction, frame and vw from those of the outputs ``cots``."""
+    B, P, dev = frame.shape[0], sim.n_particles, frame.device
+    conf = sim.conf
+    cells = conf.res[0] * conf.res[1] * conf.res[2]
+    list_cap = min(27 * P, cells)
+    f32 = dict(dtype=torch.float32, device=dev)
+    grads = [torch.empty((B, P, 3), **f32), torch.empty((B, P, 3), **f32),
+             torch.empty((B, P, 3, 3), **f32), torch.empty((B, P, 3, 3), **f32),
+             torch.empty((B, P), **f32)]
+    grads += [torch.empty(fields[n].shape, **f32) for n in ("mu", "lamda", "yield_stress")]
+    grads += [torch.empty((B, 1), **f32), torch.empty_like(frame), torch.empty_like(vw)]
+    scratch = torch.empty((B * (cells + list_cap) * 4,), **f32)
+    seg = torch.empty((B, K, N_COMP, P), **f32) if K > 1 else None
+    _call(sim, fields, frame, vw, what=_BWD, K=K, hist=hist, seg_out=seg, bwd_in=cots,
+          bwd_out=grads, scratch=scratch, list_cap=list_cap)
+    mpm_step.bwd_launches += 1
+    if K > 1:
+        mpm_step.seg_launches += math.ceil(conf.steps / K)
+    return grads
+
+
+def kernel_step(sim, state, ckpt_stride=None):
+    """The substeps of ``state`` (the output of ``sim.prepare``) through
+    ``_MPMStepFn``: K2-fwd with a checkpoint every ``ckpt_stride`` substeps
+    (by default ``checkpoint_stride``'s rule) and K2-bwd in the backward."""
+    fields, frame, vw = _inputs(sim, state)
+    B, P, steps = state.x.shape[0], sim.n_particles, sim.conf.steps
+    K = checkpoint_stride(B, P, steps) if ckpt_stride is None else int(ckpt_stride)
+    if not 1 <= K <= steps:
+        raise ValueError(f"ckpt_stride must be in [1, {steps}], not {K}")
+    outs = _MPMStepFn.apply(sim, K, *(fields[n] for n in ("x", "v", "C", "F", "J", "mu", "lamda",
+                                                            "yield_stress", "friction")),
+                            frame, vw)
+    return _rebuild(state, outs)
 
 
 def _requires_grad(state, action):
     return action.requires_grad or any(t.requires_grad for t in tree_flatten(state)[0])
 
 
-def mpm_step(sim, state, action):
+def mpm_step(sim, state, action, ckpt_stride=None):
     """One macro step of ``sim`` for the batch ``state`` under ``action``
-    (B, 6 n_primitive). CPU tensors take the plain PyTorch step; CUDA tensors
-    take the kernel, which raises on anything it does not take."""
+    (B, 6 n_primitive). CPU tensors take the plain PyTorch step (autograd
+    differentiates it; ``ckpt_stride`` does not apply); CUDA tensors take
+    the kernels, which raise on anything they do not take. ``ckpt_stride``
+    overrides the checkpoint stride rule of a differentiable step."""
     dev = state.x.device
     if dev.type == "cpu":
         return sim._step_plain(state, action)
@@ -184,11 +365,15 @@ def mpm_step(sim, state, action):
     if tuple(action.shape) != (state.x.shape[0], n_act):
         raise ValueError(f"action has shape {tuple(action.shape)}, expected (B, {n_act})")
     if torch.is_grad_enabled() and _requires_grad(state, action):
-        raise NotImplementedError(
-            "mpm_step's backward kernel (K2-bwd, unidom_tpu/ops/pallas/mpm_kernel.py:780) is "
-            "ported with the whip_rope training slice; on CUDA tensors the macro step runs "
-            "forward only, under torch.no_grad() or on tensors that need no gradient")
+        if not sim.use_position_control:
+            raise NotImplementedError(
+                "mpm_step's backward kernel (K2-bwd) covers position control; the adjoint of "
+                "SDF collision comes with the shape_rope slice. Run collision forward only, "
+                "under torch.no_grad() or on tensors that need no gradient")
+        return kernel_step(sim, sim.prepare(state, action), ckpt_stride)
     return launch(sim, sim.prepare(state, action))
 
 
 mpm_step.launches = 0
+mpm_step.bwd_launches = 0
+mpm_step.seg_launches = 0

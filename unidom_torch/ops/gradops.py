@@ -2,8 +2,9 @@
 
 Counterpart of ``unidom_tpu/ops/gradops.py``: ``normalize_grad``, which sits
 inside every cloth substep, the MPM macro step's ``clamp_grad_norm_tree``
-and ``scrub_mpm_state``, and the trainer's ``nan_to_num_tree`` and
-``global_norm_clip``. A gradient "tree" here is a list, tuple or dict of
+and ``scrub_mpm_state``, the trainer's ``nan_to_num_tree`` and
+``global_norm_clip``, and ``scrub_grad``, which whip_rope's ``grad_test``
+puts between chained steps. A gradient "tree" here is a list, tuple or dict of
 tensors; an MPM state is a tree of dataclasses. Also ``clip``, ``jnp.clip``
 with JAX's gradient.
 """
@@ -152,3 +153,20 @@ def scrub_mpm_state(state):
     scrubbed = tuple(getattr(state, name) for name in _MPM_SCRUBBED)
     outs, rest = _scrub_clamp(scrubbed, state.replace(**dict.fromkeys(_MPM_SCRUBBED)))
     return rest.replace(**dict(zip(_MPM_SCRUBBED, outs)))
+
+
+class _ScrubGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.nan_to_num(g)
+
+
+def scrub_grad(x):
+    """Identity; backward replaces NaN cotangents by 0 and +-inf by the
+    dtype's extremes (``jnp.nan_to_num``), on float tensors. Other tensors
+    pass as they are."""
+    return _ScrubGrad.apply(x) if x.is_floating_point() else x

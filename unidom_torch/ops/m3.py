@@ -30,6 +30,18 @@ def transpose(M):
     return tuple(tuple(M[j][i] for j in range(3)) for i in range(3))
 
 
+def add(A, B):
+    return tuple(tuple(A[i][j] + B[i][j] for j in range(3)) for i in range(3))
+
+
+def sub(A, B):
+    return tuple(tuple(A[i][j] - B[i][j] for j in range(3)) for i in range(3))
+
+
+def hadamard(A, B):
+    return tuple(tuple(A[i][j] * B[i][j] for j in range(3)) for i in range(3))
+
+
 def matmul(A, B):
     """C = A @ B, unrolled: 27 multiply-adds."""
     return tuple(
@@ -42,6 +54,14 @@ def matmul_tn(A, B):
     """C = A^T @ B."""
     return tuple(
         tuple(A[0][i] * B[0][j] + A[1][i] * B[1][j] + A[2][i] * B[2][j] for j in range(3))
+        for i in range(3)
+    )
+
+
+def matmul_nt(A, B):
+    """C = A @ B^T."""
+    return tuple(
+        tuple(A[i][0] * B[j][0] + A[i][1] * B[j][1] + A[i][2] * B[j][2] for j in range(3))
         for i in range(3)
     )
 

@@ -1,4 +1,4 @@
-"""Batched 3x3 SVD by cyclic Jacobi, forward only.
+"""Batched 3x3 SVD by cyclic Jacobi, with a degenerate-safe backward.
 
 Counterpart of the forward of ``unidom_tpu/ops/svd3.py``, operation for
 operation: a one-sided Jacobi eigendecomposition of ``A^T A`` (6 sweeps of
@@ -11,13 +11,19 @@ and V are what the JAX package computes, also where singular values repeat
 Not ``torch.linalg.svd``: its U and V differ from these where singular
 values repeat, and its autograd is not finite there. The MPM kernel
 (``unidom_torch/csrc/mpm_step.cu``) runs the same sweeps in registers.
-Forward only: the degenerate-safe backward comes with training.
+
+The backward is ``svd3_soa_bwd`` of the JAX package, term for term: the
+standard SVD adjoint with ``x / (x^2 + eps)`` in place of every inverse, so
+that it stays finite where singular values repeat or vanish. Autograd never
+walks the Jacobi sweeps (that is not finite at F = I). The MPM backward
+kernel evaluates the same terms in the same order.
 """
 
 import torch
 
 from unidom_torch.ops import m3
 
+DEFAULT_EPS = 1e-12
 _JACOBI_SWEEPS = 6  # full sweeps of the 3 off-diagonal rotations
 
 
@@ -132,26 +138,71 @@ def svd3_soa_fwd(A):
     return U, sig, V
 
 
+def _safe_inverse(x, eps):
+    return x / (x * x + eps)
+
+
+def svd3_soa_bwd(epsilon, res, g):
+    """Component-form degenerate-safe SVD adjoint. ``res = (U, sig, V)``;
+    ``g = (dU, dsig, dV)``; returns dA (all nested tuples)."""
+    U, S, V = res
+    dU, dS, dV = g
+
+    UtdU = m3.matmul_tn(U, dU)
+    VtdV = m3.matmul_tn(V, dV)
+
+    S2 = tuple(s * s for s in S)
+    S_inv = tuple(_safe_inverse(s, epsilon) for s in S)
+
+    # F[i][j] = safe_inv(S2[j] - S2[i]) off the diagonal, 0 on it
+    zero = torch.zeros_like(S[0])
+    Fm = tuple(
+        tuple(zero if i == j else _safe_inverse(S2[j] - S2[i], epsilon) for j in range(3))
+        for i in range(3)
+    )
+    J = m3.hadamard(Fm, UtdU)
+    K = m3.hadamard(Fm, VtdV)
+    JJt = m3.add(J, m3.transpose(J))
+    KKt = m3.add(K, m3.transpose(K))
+
+    Vh = m3.transpose(V)
+    # term 1: (U * dS) @ Vh
+    dA = m3.matmul(m3.scale_cols(U, dS), Vh)
+    # term 2: U @ ((J + J^T) * S_row) @ Vh
+    dA = m3.add(dA, m3.matmul(U, m3.matmul(m3.scale_cols(JJt, S), Vh)))
+    # term 3: (U * S) @ (K + K^T) @ Vh
+    dA = m3.add(dA, m3.matmul(m3.scale_cols(U, S), m3.matmul(KKt, Vh)))
+    # term 4: (I - U U^T) @ (dU * S_inv) @ Vh
+    PU = m3.sub(m3.eye_like(S[0]), m3.matmul_nt(U, U))
+    dA = m3.add(dA, m3.matmul(PU, m3.matmul(m3.scale_cols(dU, S_inv), Vh)))
+    # term 5: (U * S_inv) @ dV^T @ (I - V V^T)
+    PV = m3.sub(m3.eye_like(S[0]), m3.matmul_nt(V, V))
+    dA = m3.add(dA, m3.matmul(m3.scale_cols(U, S_inv), m3.matmul(m3.transpose(dV), PV)))
+    return dA
+
+
 class _SVD3(torch.autograd.Function):
-    """The SVD as one autograd node. Autograd through the Jacobi sweeps is not
-    finite where singular values repeat, which is why the JAX package gives
-    ``svd3`` a degenerate-safe VJP (``svd3_soa_bwd``); until that is ported,
-    the backward raises rather than return such a gradient."""
+    """The SVD as one autograd node whose backward is ``svd3_soa_bwd``."""
 
     @staticmethod
     def forward(ctx, A):
         U, sig, V = svd3_soa_fwd(m3.from_aos(A))
-        return m3.to_aos(U), torch.stack(sig, dim=-1), m3.to_aos(m3.transpose(V))
+        U, S, Vh = m3.to_aos(U), torch.stack(sig, dim=-1), m3.to_aos(m3.transpose(V))
+        ctx.save_for_backward(U, S, Vh)
+        return U, S, Vh
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "the 3x3 SVD's backward (svd3_soa_bwd, unidom_tpu/ops/svd3.py:173) is ported with "
-            "the whip_rope training slice")
+    def backward(ctx, dU, dS, dVh):
+        U, S, Vh = ctx.saved_tensors
+        res = (m3.from_aos(U), tuple(S[..., i] for i in range(3)),
+               m3.transpose(m3.from_aos(Vh)))
+        g = (m3.from_aos(dU), tuple(dS[..., i] for i in range(3)),
+             m3.transpose(m3.from_aos(dVh)))
+        return m3.to_aos(svd3_soa_bwd(DEFAULT_EPS, res, g))
 
 
 def svd3(A):
     """(..., 3, 3) -> (U, S, Vh) with ``A == (U * S[..., None, :]) @ Vh``, as
-    ``unidom_tpu.ops.svd3.svd3`` computes them. Forward only: its backward
-    raises."""
+    ``unidom_tpu.ops.svd3.svd3`` computes them, with its degenerate-safe
+    backward."""
     return _SVD3.apply(A)
