@@ -39,6 +39,20 @@ macro step's adjoint) and K2-seg (segment recompute, a phase of K2-bwd):
     3 K2-fwd, 3 K2-bwd and 24 K2-seg phases per update), one update's policy
     gradient against the plain step's, the ep_len-70 update with truncation
     10, K2-bwd's times and bound, and a profile of one update.
+and it builds the big-grid macro-step kernel (K3-fwd) and drives the port's
+big-grid path: pour_soup (n_grid 128, a 128x64x128 grid, 7,694 particles of
+water, elastic tofu and vegetables, two bowls) at 32 envs and
+shape_elasto_plastic (23,940 sigma-clip particles on a 48x32x48 grid) at 16:
+  - one macro step of each, and of a config with more particles than K2
+    holds on a grid K2 takes, against the float32 and float64 plain steps,
+    with the mu = lamda = 0 witness;
+  - the pour_soup rollout (``run_eval``, 120 macro steps, 120 K3-fwd calls),
+    three of its macro steps replayed through the plain steps, its
+    env-steps/s, peak memory and profile; the shape_elasto_plastic rollout
+    (6 macro steps, 120 K3-fwd calls); pour_water's (K2) at 256 envs;
+  - K3-fwd's times at pour_soup 8, 32 and 64 envs and shape_elasto_plastic
+    16, beside the plain step and the bound.
+The counters show that each path launches its own kernels and no other.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
 
@@ -597,16 +611,17 @@ def mpm_work(sim, x_in, x_out):
     return tuple((a + b) / 2 for a, b in zip(*counts))
 
 
-def mpm_bound(sim, state, out):
-    """Least time in ms of one K2-fwd launch from ``state`` to ``out``, and
-    what bounds it: the operations counted above for this run's touched
-    cells, and the bytes of its inputs and outputs."""
+def mpm_bound(sim, state, out, cell_flops=FLOP_MPM_CELL):
+    """Least time in ms of one K2-fwd (or K3-fwd) macro step from ``state``
+    to ``out``, and what bounds it: the operations counted above for this
+    run's touched cells (``cell_flops`` each), and the bytes of its inputs
+    and outputs."""
     from unidom_torch.ops.cuda.mpm_kernel import pack_primitives
 
     conf = sim.conf
     B, P = state.x.shape[:2]
     cells, bottom = mpm_work(sim, state.x, out.x)
-    flops = conf.steps * (FLOP_MPM_PARTICLE * B * P + FLOP_MPM_CELL * cells
+    flops = conf.steps * (FLOP_MPM_PARTICLE * B * P + cell_flops * cells
                           + FLOP_MPM_FRICTION * bottom)
     fields = mpm_fields(out)
     moved = (nbytes([getattr(state, n) for n in ("x", "v", "C", "F", "J", "mu", "lamda",
@@ -730,6 +745,7 @@ def mpm_phases(dev):
     from unidom_torch.algorithms.apg import run_eval
     from unidom_torch.models.mlp import PolicyMLP
     from unidom_torch.ops.cuda.cloth_kernel import cloth_robot_step
+    from unidom_torch.ops.cuda.mpm_big_kernel import mpm_big_step
     from unidom_torch.ops.cuda.mpm_kernel import mpm_step
 
     # ---- 11. K2-fwd parity: one whip_rope macro step at 1024 envs
@@ -794,6 +810,7 @@ def mpm_phases(dev):
                        generator=torch.Generator().manual_seed(0), device=dev)
     _, state0 = env.reset(torch.Generator().manual_seed(1))
     mpm_step.launches = 0
+    mpm_big_step.launches = 0
     cloth_robot_step.launches = 0
     cloth_robot_step.bwd_launches = 0
     torch.cuda.synchronize()
@@ -802,14 +819,15 @@ def mpm_phases(dev):
                                 generator=torch.Generator(device=dev).manual_seed(2))
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
-    launches = mpm_step.launches
+    launches, k3 = mpm_step.launches, mpm_big_step.launches
     k1 = {"fwd": cloth_robot_step.launches, "bwd": cloth_robot_step.bwd_launches}
     log(f"[mpm-slice] run_eval whip_rope B={B_MAIN}: {launches} K2-fwd launches (expected "
-        f"{env.max_steps}), K1 launches {k1} (expected 0); first rollout {t_first:.3f} s")
+        f"{env.max_steps}), K1 launches {k1} and K3-fwd {k3} (expected 0); first rollout "
+        f"{t_first:.3f} s")
     if launches != env.max_steps:
         fail(f"{launches} K2-fwd launches in the whip_rope rollout, expected {env.max_steps}")
-    if k1 != {"fwd": 0, "bwd": 0}:
-        fail(f"the whip_rope rollout launched the cloth kernels {k1}")
+    if k1 != {"fwd": 0, "bwd": 0} or k3 != 0:
+        fail(f"the whip_rope rollout launched the cloth kernels {k1} and K3-fwd {k3} times")
     if tuple(rewards.shape) != (env.max_steps, B_MAIN) or not torch.isfinite(rewards).all():
         fail(f"rewards of shape {tuple(rewards.shape)} are not all finite")
 
@@ -913,15 +931,16 @@ def mpm_phases(dev):
         "bound_by": bound_1024[1],
         "library_ms": None,
     }
-    return entry, k1
+    return entry, k1, k3
 
 
-def mpm_slice_envs(state, n):
-    """The first ``n`` envs of an MPM state."""
+def mpm_slice_envs(state, stop, start=0):
+    """Envs ``start`` to ``stop`` (by default the first ``stop``) of an MPM
+    state."""
     from unidom_torch.ops.gradops import tree_flatten
 
     leaves, rebuild = tree_flatten(state)
-    return rebuild([t[:n].contiguous() for t in leaves])
+    return rebuild([t[start:stop].contiguous() for t in leaves])
 
 
 def mpm_vjp(step, state, action, cot):
@@ -1039,6 +1058,7 @@ def mpm_grad_phases(dev):
     from unidom_torch.envs.mpm_tasks import grad_test
     from unidom_torch.ops.cuda import mpm_kernel as mk
     from unidom_torch.ops.cuda.cloth_kernel import cloth_robot_step
+    from unidom_torch.ops.cuda.mpm_big_kernel import mpm_big_step
     from unidom_torch.ops.cuda.mpm_kernel import mpm_step
 
     # ---- 16. K2-bwd parity: one whip_rope macro step's VJP at 1024 envs
@@ -1190,6 +1210,7 @@ def mpm_grad_phases(dev):
     torch.cuda.reset_peak_memory_stats()
     mpm_step.launches = mpm_step.bwd_launches = mpm_step.seg_launches = 0
     cloth_robot_step.launches = cloth_robot_step.bwd_launches = 0
+    mpm_big_step.launches = 0
     ts, history = train("whip_rope", EP_LEN, B_MAIN, max_it=TRAIN_IT, eval_freq=TRAIN_IT,
                         num_eval_envs=20, logdir=str(logdir), device="cuda")
     torch.cuda.synchronize()
@@ -1203,8 +1224,9 @@ def mpm_grad_phases(dev):
         f"{eval_its} evals of 20 envs): launches {train_launches} (expected {expect}), K1 {k1}; "
         f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
         f"({mem_before / 1e9:.3f} GB held before)")
-    if train_launches != expect or k1 != (0, 0):
-        fail(f"whip_rope training launched K2 {train_launches} and K1 {k1} times")
+    if train_launches != expect or k1 != (0, 0) or mpm_big_step.launches != 0:
+        fail(f"whip_rope training launched K2 {train_launches}, K1 {k1} and K3-fwd "
+             f"{mpm_big_step.launches} times")
     for rec in history:
         log(f"[mpm-train] {json.dumps(rec)}")
         if not all(math.isfinite(rec[k]) for k in ("train_reward", "grad_norm", "sps")):
@@ -1357,6 +1379,445 @@ def mpm_grad_phases(dev):
     return bwd_entry, seg_entry, train_launches["fwd"]
 
 
+# ---- the big-grid MPM path through K3-fwd: pour_soup (n_grid 128, a
+# 128x64x128 grid, 7,694 particles of water and elastic tofu and vegetables,
+# two bowls under collision, 25 substeps per macro step, 120 macro steps) and
+# shape_elasto_plastic (n_grid 96, a 48x32x48 grid, 23,940 sigma-clip
+# particles pushed by a box, 16 substeps per simulator call, 20 calls per
+# macro step, 6 macro steps).
+B_SOUP = 32  # pour_soup's rollout width
+B_SOUP_PLAIN = 8  # the envs that the plain steps replay
+B_ELASTO = 16  # shape_elasto_plastic at the reference's width
+B_ELASTO_PLAIN = 4
+B_BIG_CONFIG = 64  # a config with more particles than K2 holds on a grid it takes
+B_WATER = 256
+WATER_STEPS = 5  # pour_water's rollout, cut: a check that it stays on K2
+SOUP_TIME_B = (8, 32, 64)
+# The rollout's macro steps replayed through the plain steps: before ~90,
+# where the random policy's episode starts to break the float32 physics in
+# some envs (water at J = 0 through the walls), chaotically, in the plain
+# step as in the kernel.
+SOUP_REPLAYED = (0, 40, 80)
+# bowl 0's macro action in the parity step (moving and tilting; bowl 1 stays)
+SOUP_ACTION = (0.5, 0.2, -0.3, 0.0, 0.0, 0.4)
+# a push from beside the slab into its side, 0.06 long, in world positions
+ELASTO_PUSH = (0.38, 0.0, 0.5, 0.44, 0.0, 0.5)
+# Operations of a touched cell under collision, counted from
+# unidom_torch/csrc/mpm_device.cuh's grid_op as FLOP_MPM_CELL above: mass
+# normalisation, gravity and position 12; per primitive the inverse
+# quaternion 13, the offset 3, two rotations 60 and a third for the normal
+# 30, the SDF with its gradient (box 28, container 35), influence 2, the
+# normal's norm 10, the collider's velocity 12, the normal component 5, the
+# tangent 6, its norm 8, friction 2 and the blend 21: 200 for a box, 207 for
+# a bowl. K3-fwd's particle work is K2-fwd's (FLOP_MPM_PARTICLE).
+FLOP_MPM_GRID = 12
+FLOP_MPM_COLLIDE = {"box": 200, "container": 207}
+
+
+def big_cell_flops(sim):
+    """Operations of one touched cell's grid ops for ``sim`` (friction on the
+    bottom layers aside)."""
+    if sim.use_position_control:
+        return FLOP_MPM_CELL
+    return FLOP_MPM_GRID + sum(FLOP_MPM_COLLIDE[n] for n in sim.sdf_names)
+
+
+def big_parity_inputs(env, dev, seed=0):
+    """A big-grid env's reset state in the simulator's frame (the focus shift
+    applied) with random v and C per particle from a numpy seed, and the
+    first sub-action of a macro action: pour_soup's bowl 0 moving and tilting
+    (per env about SOUP_ACTION), shape_elasto_plastic's ELASTO_PUSH."""
+    import numpy as np
+    import torch
+
+    B = env.batch_size
+    rng = np.random.default_rng(seed)
+    _, s = env.reset(torch.Generator().manual_seed(seed))
+    s, shift = env.pre_step(s)
+    s = s.replace(
+        v=torch.from_numpy(0.2 * rng.standard_normal(s.v.shape, dtype=np.float32)).to(dev),
+        C=torch.from_numpy(0.5 * rng.standard_normal(s.C.shape, dtype=np.float32)).to(dev))
+    if env.simulator.sdf_names[0] == "container":
+        macro = np.clip(np.asarray(SOUP_ACTION, np.float32)
+                        + 0.2 * rng.standard_normal((B, 6), dtype=np.float32), -1, 1)
+    else:
+        macro = np.tile(np.asarray(ELASTO_PUSH, np.float32), (B, 1))
+    macro = env.process_pre_step_actions(torch.from_numpy(macro).to(dev), shift[:, 0])
+    sub, s = env.get_primitive_actions(macro, s)
+    return s, sub[:, 0].contiguous()
+
+
+def big_plain_env(env, dtype, stop, start=0):
+    """Shallow copy of the big-grid ``env`` on its envs ``start`` to
+    ``stop`` that runs the plain step in ``dtype``."""
+    out = mpm_plain_env(env, dtype)
+    out.init_state = mpm_slice_envs(out.init_state, stop, start)
+    out.batch_size = stop - start
+    return out
+
+
+def big_outside(env, s, info):
+    """Per env, whether a particle of the macro step from ``s`` (``info``,
+    its ``step_diff`` info) ended outside the box that the grid's walls
+    bound, or not finite, in the simulator's frame."""
+    import torch
+
+    conf = env.conf
+    target = torch.tensor(conf.res, dtype=s.x.dtype, device=s.x.device) * 0.5 / conf.n_grid
+    shift = target - s.x.mean(1)
+    shift[:, 1] = 0.0
+    x = info["state_list"][-1].x + shift[:, None]
+    return ~((x >= 0) & (x <= conf.n_grid * conf.dx)).all(-1).all(-1)
+
+
+def big_parity(what, sim, state, action, n_plain):
+    """One macro step through ``sim.step_batch`` (K3-fwd on the card), held
+    on its first ``n_plain`` envs against the float32 and float64 plain steps
+    by ``mpm_gate``, with the mu = lamda = 0 witness. Returns (the largest
+    |kernel - plain|, the kernel's output)."""
+    import torch
+
+    from unidom_torch.ops.cuda.mpm_big_kernel import mpm_big_step
+    from unidom_torch.ops.cuda.mpm_kernel import mpm_step
+
+    k2, k3 = mpm_step.launches, mpm_big_step.launches
+    with torch.no_grad():
+        out_k = sim.step_batch(state, action)
+        torch.cuda.synchronize()
+        if (mpm_big_step.launches - k3, mpm_step.launches - k2) != (1, 0):
+            fail(f"{what}: the step launched K3-fwd {mpm_big_step.launches - k3} and K2-fwd "
+                 f"{mpm_step.launches - k2} times, not once and never")
+        if not all(torch.isfinite(t).all() for t in mpm_fields(out_k).values()):
+            fail(f"{what}: the kernel's output is not finite")
+        head, a_head = mpm_slice_envs(state, n_plain), action[:n_plain]
+        out_p = sim._step_plain(head, a_head)
+        out_64 = sim._step_plain(mpm_cast(head, torch.float64), a_head.double())
+        err, gates = mpm_gate(what, mpm_slice_envs(out_k, n_plain), out_p, out_64)
+        witness = sim._step_plain(head.replace(mu=torch.zeros_like(head.mu),
+                                               lamda=torch.zeros_like(head.lamda)), a_head)
+    ratios = {name: errors(t, mpm_fields(out_64)[name])[1] / gates[name]
+              for name, t in mpm_fields(witness).items()}
+    log(f"[{what}] witness, the float32 plain step with mu = lamda = 0: rms error vs float64 "
+        "over the gate " + ", ".join(f"{k} {v:.3e}x" for k, v in ratios.items())
+        + f" (must be at least {WITNESS_MARGIN:g}x in v)")
+    if not ratios["v"] >= WITNESS_MARGIN:
+        fail(f"{what}: the witness without elastic stress passes the gate")
+    moved = (out_k.x - state.x).abs().max().item()
+    log(f"[{what}] B={state.x.shape[0]} (plain on {n_plain}), P={sim.n_particles}, res "
+        f"{sim.conf.res}, {sim.conf.steps} substeps, SDFs {sim.sdf_names}, materials "
+        f"{sorted(set(sim.material.tolist()))}; particles moved up to {moved:.3e}")
+    if moved < 1e-4:
+        fail(f"{what}: the step left the particles where they were")
+    return err, out_k
+
+
+def big_config_sim(B, dev):
+    """(simulator, perturbed state, action) with more particles than K2
+    holds (an elastic bar at 4 particles per cell width, 64 per cell) on a
+    grid that K2 takes: tests/test_pallas_mpm.py's small config otherwise."""
+    import numpy as np
+    import torch
+
+    from unidom_torch.engine.mpm import ELASTIC, MPMConf, MPMSimulator
+    from unidom_torch.engine.primitives import create_primitive
+
+    conf = MPMConf(n_grid=32, dt=2e-4, steps=8, E=100.0, nu=0.1, res=(16, 16, 16),
+                   ground_friction=0.5, task="test")
+    sim = MPMSimulator(conf, B, use_position_control=False, device=dev)
+    s = sim.add_box(None, size=(0.25, 0.06, 0.06), init_pos=(0.5, 0.08, 0.5), material=ELASTIC,
+                    density=4.0)
+    s.primitives.append(create_primitive(8, 0.2, 666.0, [0.5] * 3, (0.03,) * 3,
+                                         (0.5, 0.06, 0.46), device=dev))
+    sim.register_primitive_sdf("box")
+    s = sim.reset(s)
+    rng = np.random.default_rng(2)
+    s = s.replace(
+        v=torch.from_numpy(0.2 * rng.standard_normal(s.v.shape, dtype=np.float32)).to(dev),
+        C=torch.from_numpy(0.5 * rng.standard_normal(s.C.shape, dtype=np.float32)).to(dev))
+    a = torch.tensor([[0.4, 0.2, -0.3, 0.05, 0.05, 0.05]], device=dev).expand(B, 6).contiguous()
+    return sim, s, a
+
+
+def big_phases(dev):
+    """The big-grid path: K3-fwd parity on pour_soup, shape_elasto_plastic
+    and a config that K2 refuses, with witnesses; the pour_soup and
+    shape_elasto_plastic rollouts through K3-fwd (the main path) and
+    pour_water's through K2; K3-fwd's times at pour_soup B = 8, 32, 64 and
+    shape_elasto_plastic B = 16 beside the plain step and the bound.
+    Returns the kernels-line entry of K3-fwd and the K2-fwd launches of
+    pour_water's rollout."""
+    import torch
+
+    from unidom_torch import make_env
+    from unidom_torch.algorithms.apg import run_eval
+    from unidom_torch.engine.mpm import kernel_route
+    from unidom_torch.models.mlp import PolicyMLP
+    from unidom_torch.ops.cuda.cloth_kernel import cloth_robot_step
+    from unidom_torch.ops.cuda.mpm_big_kernel import mpm_big_step
+    from unidom_torch.ops.cuda.mpm_kernel import MAX_CELLS, MAX_PARTICLES, mpm_step
+
+    def counts():
+        return {"K3-fwd": mpm_big_step.launches, "K3 CUDA launches": mpm_big_step.cuda_launches,
+                "K2-fwd": mpm_step.launches, "K2-bwd": mpm_step.bwd_launches,
+                "K1-fwd": cloth_robot_step.launches, "K1-bwd": cloth_robot_step.bwd_launches}
+
+    def zero():
+        mpm_big_step.launches = mpm_big_step.cuda_launches = 0
+        mpm_step.launches = mpm_step.bwd_launches = mpm_step.seg_launches = 0
+        cloth_robot_step.launches = cloth_robot_step.bwd_launches = 0
+
+    # ---- 22. K3-fwd parity: pour_soup, shape_elasto_plastic, and P > 1024
+    t_phase = time.perf_counter()
+    soup = make_env("pour_soup", batch_size=B_SOUP, device=dev)
+    elasto = make_env("shape_elasto_plastic", batch_size=B_ELASTO, device=dev)
+    csim, cstate, caction = big_config_sim(B_BIG_CONFIG, dev)
+    cells = math.prod(csim.conf.res)
+    routes = {n: kernel_route(e.simulator) for n, e in (("pour_soup", soup),
+                                                        ("shape_elasto_plastic", elasto))}
+    routes["P > 1024"] = kernel_route(csim)
+    log(f"[big-parity] routes {routes}; the P > 1024 config: P={csim.n_particles} (K2 holds "
+        f"{MAX_PARTICLES}), {cells} cells (K2 takes {MAX_CELLS})")
+    if set(routes.values()) != {"k3"} or not (csim.n_particles > MAX_PARTICLES
+                                              and cells <= MAX_CELLS):
+        fail("the big-grid configurations are not routed to K3-fwd as they should be")
+    zero()
+    big_err = 0.0
+    soup_in = big_parity_inputs(soup, dev)
+    err, soup_out = big_parity("big-parity pour_soup", soup.simulator, *soup_in, B_SOUP_PLAIN)
+    big_err = max(big_err, err)
+    bowl1 = (soup_out.primitives[1].position[:, -1] - soup_in[0].primitives[1].position[:, 0])
+    bowl0 = (soup_out.primitives[0].position[:, -1] - soup_in[0].primitives[0].position[:, 0])
+    log(f"[big-parity pour_soup] bowl 0 moved by up to {bowl0.norm(dim=1).max().item():.3e}, "
+        f"bowl 1 by {bowl1.norm(dim=1).max().item():.3e}")
+    if not bowl0.norm(dim=1).min().item() > 1e-5 or bowl1.abs().max().item() > 1e-6:
+        fail("pour_soup's parity step: bowl 0 must move and bowl 1 stay")
+    elasto_in = big_parity_inputs(elasto, dev)
+    err, _ = big_parity("big-parity shape_elasto_plastic", elasto.simulator, *elasto_in,
+                        B_ELASTO_PLAIN)
+    big_err = max(big_err, err)
+    err, _ = big_parity("big-parity P > 1024", csim, cstate, caction, B_BIG_CONFIG)
+    big_err = max(big_err, err)
+    c = counts()
+    log(f"[big-parity] launches {c}; {time.perf_counter() - t_phase:.2f} s")
+    if (c["K3-fwd"], c["K2-fwd"]) != (3, 0):
+        fail(f"the big-grid parity steps launched {c}")
+    del soup_out, csim, cstate, caction
+    torch.cuda.empty_cache()
+
+    # ---- 23. the main path: pour_soup's policy rollout at 32 envs
+    t_phase = time.perf_counter()
+    sim = soup.simulator
+    steps = sim.conf.steps
+    policy = PolicyMLP(soup.observation_size, 2 * soup.action_size,
+                       generator=torch.Generator().manual_seed(0), device=dev)
+    _, state0 = soup.reset(torch.Generator().manual_seed(1))
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, acts, rewards = run_eval(policy, None, soup, state0,
+                                generator=torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    soup_counts = counts()
+    expect = {"K3-fwd": soup.max_steps, "K3 CUDA launches": soup.max_steps * (4 * steps + 2),
+              "K2-fwd": 0, "K2-bwd": 0, "K1-fwd": 0, "K1-bwd": 0}
+    log(f"[big-rollout] run_eval pour_soup B={B_SOUP}: launches {soup_counts} (expected "
+        f"{expect}); first rollout {t_first:.3f} s")
+    if soup_counts != expect:
+        fail(f"the pour_soup rollout launched {soup_counts}")
+    if tuple(rewards.shape) != (soup.max_steps, B_SOUP) or not torch.isfinite(rewards).all():
+        fail(f"pour_soup rewards of shape {tuple(rewards.shape)} are not all finite")
+    # The episode replayed through K3-fwd, SOUP_REPLAYED through the plain
+    # steps from the kernel's state. At the first macro step where the
+    # kernel's run leaves the walls' box, all its envs are replayed from the
+    # same input through the plain steps, and where each leaves is logged,
+    # not gated (see SOUP_REPLAYED).
+    env32 = big_plain_env(soup, torch.float32, B_SOUP_PLAIN)
+    env64 = big_plain_env(soup, torch.float64, B_SOUP_PLAIN)
+    s, escaped, first = state0, torch.zeros(B_SOUP, dtype=torch.bool, device=dev), None
+    with torch.no_grad():
+        for t in range(soup.max_steps):
+            _, r_k, _, info = soup.step_diff(acts[t], s)
+            out = big_outside(soup, s, info)
+            if out.any() and first is None:
+                first = (t, out.nonzero().flatten().tolist())
+                seen = {}
+                for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+                    s_d = mpm_cast(s, dtype)
+                    _, _, _, pinfo = big_plain_env(soup, dtype, B_SOUP).step_diff(
+                        acts[t].to(dtype), s_d)
+                    seen[name] = big_outside(soup, s_d, pinfo).nonzero().flatten().tolist()
+                    del s_d, pinfo
+                log(f"[big-rollout] pour_soup macro step {t}: the first where particles leave "
+                    f"the walls' box (or are not finite) in the kernel's run, in envs "
+                    f"{first[1]}; replayed from the same input, in the float32 plain step's "
+                    f"envs {seen['float32']}, the float64 one's {seen['float64']}")
+            escaped |= out
+            if t in SOUP_REPLAYED:
+                head, a_head = mpm_slice_envs(s, B_SOUP_PLAIN), acts[t][:B_SOUP_PLAIN]
+                _, r_p, _, _ = env32.step_diff(a_head, head)
+                _, r_64, _, _ = env64.step_diff(a_head.double(), mpm_cast(head, torch.float64))
+                e_k = (r_k[:B_SOUP_PLAIN].double() - r_64).abs()
+                e_p = (r_p.double() - r_64).abs()
+                log(f"[big-rollout] pour_soup macro step {t} from the kernel's state, reward "
+                    f"error vs the float64 plain step: kernel mean {e_k.mean():.3e} max "
+                    f"{e_k.max():.3e}, float32 plain mean {e_p.mean():.3e} max "
+                    f"{e_p.max():.3e}; rewards mean {r_64.mean():.6f}")
+                if e_k.mean() > PARITY_RATIO * e_p.mean() + 1e-6:
+                    fail(f"pour_soup macro step {t}: the kernel's rewards are further from "
+                         "float64 than the plain step's")
+            if t == soup.max_steps - 2:
+                last = info["state_list"][-1]
+                bowl = (last.primitives[0].position[:, -1]
+                        - state0.primitives[0].position[:, 0]).norm(dim=1)
+                J = last.J[torch.isfinite(last.J)]
+            s = info["state"]
+    log(f"[big-rollout] pour_soup episode: {int(escaped.sum())} of {B_SOUP} envs left the walls' "
+        f"box at some step (first at {first}); before the last step J in [{J.min().item():.3e}, "
+        f"{J.max().item():.3e}] over its finite values; bowl 0 moved by median "
+        f"{bowl.median().item():.4f}; rewards (env 0) "
+        f"{[round(r, 5) for r in rewards[::20, 0].tolist()]} every 20 steps")
+    if not bowl.max().item() > 1e-3:
+        fail("pour_soup's bowl did not move")
+    del env32, env64
+    t_roll = []
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        for _ in range(4):  # a warm rollout, then best of 3
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_eval(policy, None, soup, state0, deterministic=True)
+            torch.cuda.synchronize()
+            t_roll.append(time.perf_counter() - t0)
+    soup_peak = torch.cuda.max_memory_allocated()
+    soup_sps = soup.max_steps * B_SOUP / min(t_roll[1:])
+    log(f"[big-rollout] pour_soup rollout B={B_SOUP} ({soup.max_steps} macro steps): "
+        f"{soup_sps:.1f} env-steps/s through K3-fwd (best of "
+        f"{[round(t, 4) for t in t_roll[1:]]} s after a warm {t_roll[0]:.4f} s); peak memory "
+        f"{soup_peak / 1e9:.3f} GB")
+    profile_device(f"run_eval pour_soup B={B_SOUP}",
+                   lambda: run_eval(policy, None, soup, state0, deterministic=True), top=8)
+    del policy
+    log(f"[big-rollout] pour_soup {time.perf_counter() - t_phase:.2f} s")
+
+    # ---- 24. shape_elasto_plastic's rollout at 16 envs, and pour_water's on K2
+    t_phase = time.perf_counter()
+    esim = elasto.simulator
+    policy = PolicyMLP(elasto.observation_size, 2 * elasto.action_size,
+                       generator=torch.Generator().manual_seed(0), device=dev)
+    _, e0 = elasto.reset(torch.Generator().manual_seed(1))
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, eacts, erewards = run_eval(policy, None, elasto, e0,
+                                  generator=torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    elasto_counts = counts()
+    calls = elasto.max_steps * elasto.PUSH_SUBSTEPS
+    expect = {"K3-fwd": calls, "K3 CUDA launches": calls * (4 * esim.conf.steps + 2),
+              "K2-fwd": 0, "K2-bwd": 0, "K1-fwd": 0, "K1-bwd": 0}
+    log(f"[big-rollout] run_eval shape_elasto_plastic B={B_ELASTO}: launches {elasto_counts} "
+        f"(expected {expect}); first rollout {t_first:.3f} s")
+    if elasto_counts != expect:
+        fail(f"the shape_elasto_plastic rollout launched {elasto_counts}")
+    if not torch.isfinite(erewards).all():
+        fail("shape_elasto_plastic's rewards are not all finite")
+    with torch.no_grad():
+        _, r_k, _, _ = elasto.step_diff(eacts[0], e0)
+        head, a_head = mpm_slice_envs(e0, B_ELASTO_PLAIN), eacts[0][:B_ELASTO_PLAIN]
+        _, r_p, _, _ = big_plain_env(elasto, torch.float32, B_ELASTO_PLAIN).step_diff(a_head, head)
+        _, r_64, _, _ = big_plain_env(elasto, torch.float64, B_ELASTO_PLAIN).step_diff(
+            a_head.double(), mpm_cast(head, torch.float64))
+    e_k, e_p = (r_k[:B_ELASTO_PLAIN].double() - r_64).abs(), (r_p.double() - r_64).abs()
+    log(f"[big-rollout] shape_elasto_plastic macro step 0 ({elasto.PUSH_SUBSTEPS} simulator "
+        f"calls), reward error vs the float64 plain step: kernel mean {e_k.mean():.3e}, float32 "
+        f"plain mean {e_p.mean():.3e}; rewards mean {r_64.mean():.6f}")
+    if e_k.mean() > PARITY_RATIO * e_p.mean() + 1e-6:
+        fail("shape_elasto_plastic: the kernel's rewards are further from float64 than the "
+             "plain step's")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_eval(policy, None, elasto, e0, deterministic=True)
+        torch.cuda.synchronize()
+        t_elasto = time.perf_counter() - t0
+    log(f"[big-rollout] shape_elasto_plastic rollout B={B_ELASTO} ({elasto.max_steps} macro "
+        f"steps, {calls} K3-fwd calls): {elasto.max_steps * B_ELASTO / t_elasto:.2f} env-steps/s "
+        f"({t_elasto:.4f} s after the counted rollout)")
+    del policy
+    water = make_env("pour_water", batch_size=B_WATER, max_steps=WATER_STEPS, device=dev)
+    wpolicy = PolicyMLP(water.observation_size, 2 * water.action_size,
+                        generator=torch.Generator().manual_seed(0), device=dev)
+    _, w0 = water.reset(torch.Generator().manual_seed(1))
+    zero()
+    _, _, wrewards = run_eval(wpolicy, None, water, w0, deterministic=True)
+    torch.cuda.synchronize()
+    water_counts = counts()
+    log(f"[big-rollout] run_eval pour_water B={B_WATER}, {WATER_STEPS} macro steps, route "
+        f"{kernel_route(water.simulator)}: launches {water_counts}")
+    if (water_counts["K2-fwd"], water_counts["K3-fwd"]) != (WATER_STEPS, 0):
+        fail(f"pour_water's rollout launched {water_counts}, not K2-fwd alone")
+    if not torch.isfinite(wrewards).all():
+        fail("pour_water's rewards are not all finite")
+    del water, wpolicy, w0
+    log(f"[big-rollout] {time.perf_counter() - t_phase:.2f} s")
+    torch.cuda.empty_cache()
+
+    # ---- 25. K3-fwd times beside the plain step and the bound
+    t_phase = time.perf_counter()
+    times, bounds = {}, {}
+    cases = [("pour_soup", B) for B in SOUP_TIME_B] + [("shape_elasto_plastic", B_ELASTO)]
+    for name, B in cases:
+        env = {("pour_soup", B_SOUP): soup, ("shape_elasto_plastic", B_ELASTO): elasto}.get(
+            (name, B)) or make_env(name, batch_size=B, device=dev)
+        wsim = env.simulator
+        ws, wa = big_parity_inputs(env, dev)
+        rounds = []
+        with torch.no_grad():
+            out = mpm_big_step(wsim, ws, wa)
+            for order in (("plain", "kernel"), ("kernel", "plain")):
+                r = {}
+                for which in order:
+                    if which == "kernel":
+                        r[which] = cuda_ms(lambda: mpm_big_step(wsim, ws, wa), reps=10)
+                    else:
+                        r[which] = cuda_ms(lambda: wsim._step_plain(ws, wa), reps=1, warmup=1)
+                rounds.append(r)
+        key = f"{name} B={B}"
+        times[key] = {k: sum(r[k] for r in rounds) / len(rounds) for k in rounds[0]}
+        bounds[key] = mpm_bound(wsim, ws, out, big_cell_flops(wsim))
+        (b_ms, b_by), flops, moved, cells_env = bounds[key]
+        log(f"[big-time] one {name} simulator call, B={B}: K3-fwd {times[key]['kernel']:.4f} ms, "
+            f"plain {times[key]['plain']:.4f} ms, speedup "
+            f"{times[key]['plain'] / times[key]['kernel']:.1f}x (rounds {rounds}); bound "
+            f"{b_ms:.4f} ms ({b_by}: {FLOP_MPM_PARTICLE} operations per particle-substep, "
+            f"{big_cell_flops(wsim)} per touched cell, {cells_env:.1f} touched cells per env "
+            f"and substep, {flops / 1e9:.3f} GFLOP; {moved / 1e6:.2f} MB in and out); K3-fwd at "
+            f"{100 * b_ms / times[key]['kernel']:.2f}% of it")
+        del env, wsim, ws, wa, out
+        torch.cuda.empty_cache()
+    log(f"[big-time] {time.perf_counter() - t_phase:.2f} s")
+    main_key = f"pour_soup B={B_SOUP}"
+    entry = {
+        "name": "mpm_big_step_fwd",
+        "route": "cuda",
+        "source": "unidom_torch/csrc/mpm_big_step.cu",
+        "replaces": "unidom_tpu/ops/pallas/mpm_big_kernel.py:1042",
+        "launches": soup_counts["K3-fwd"],
+        "launches_by_path": {"pour_soup_run_eval": soup_counts["K3-fwd"],
+                             "shape_elasto_plastic_run_eval": elasto_counts["K3-fwd"],
+                             "pour_water_run_eval": water_counts["K3-fwd"]},
+        "max_abs_err": big_err,
+        "ms": times[main_key]["kernel"],
+        "plain_ms": times[main_key]["plain"],
+        "bound_ms": bounds[main_key][0][0],
+        "bound_by": bounds[main_key][0][1],
+        "library_ms": None,
+    }
+    return entry, water_counts["K2-fwd"]
+
+
 def main():
     import torch
 
@@ -1377,7 +1838,7 @@ def main():
     from unidom_torch.engine.cloth import ClothConf, ClothSimulator
     from unidom_torch.envs.cloth_tasks import goal_path
     from unidom_torch.models.mlp import PolicyMLP
-    from unidom_torch.ops.cuda import cloth_kernel, mpm_kernel
+    from unidom_torch.ops.cuda import cloth_kernel, mpm_big_kernel, mpm_kernel
     from unidom_torch.ops.cuda._build import build_library, library_path
     from unidom_torch.ops.cuda.cloth_kernel import cloth_robot_step, cloth_robot_step_vjp_plain
     from unidom_torch.ops.cuda.mpm_kernel import mpm_step
@@ -1399,7 +1860,7 @@ def main():
 
     # ---- 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    sources = (cloth_kernel.SOURCE, mpm_kernel.SOURCE)
+    sources = (cloth_kernel.SOURCE, mpm_kernel.SOURCE, mpm_big_kernel.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         build_logs = list(pool.map(build_library, sources))
     log(f"[build] {', '.join(f'{s} -> {library_path(s).name}' for s in sources)} in "
@@ -1410,11 +1871,16 @@ def main():
                 log(f"[build] {source} ptxas: {line.strip()}")
 
     # ---- the MPM paths (phases 11-15, see mpm_phases; 16-21, mpm_grad_phases)
-    mpm_entry, whip_k1 = mpm_phases(dev)
+    mpm_entry, whip_k1, whip_k3 = mpm_phases(dev)
     torch.cuda.empty_cache()
     bwd_entry, seg_entry, whip_train_fwd = mpm_grad_phases(dev)
     mpm_entry["launches"] = whip_train_fwd
     mpm_entry["launches_by_path"]["whip_rope_train"] = whip_train_fwd
+    torch.cuda.empty_cache()
+    # ---- the big-grid MPM path (phases 22-25, see big_phases)
+    big_entry, water_k2 = big_phases(dev)
+    big_entry["launches_by_path"]["whip_rope_run_eval"] = whip_k3
+    mpm_entry["launches_by_path"]["pour_water_run_eval"] = water_k2
     torch.cuda.empty_cache()
 
     t_phase = time.perf_counter()
@@ -1815,7 +2281,7 @@ def main():
         "bound_ms": bounds[B_MAIN]["bwd"][0],
         "bound_by": bounds[B_MAIN]["bwd"][1],
         "library_ms": None,
-    }, mpm_entry, bwd_entry, seg_entry]}))
+    }, mpm_entry, bwd_entry, seg_entry, big_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 
 

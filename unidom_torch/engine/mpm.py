@@ -10,9 +10,12 @@ rows.
 
 ``MPMSimulator.step_batch`` runs one macro step (``conf.steps`` substeps)
 for the batch: for CPU tensors the plain PyTorch step (``_step_plain``),
-which mirrors the JAX oracle operator for operator; for CUDA tensors the
-hand-written macro-step kernel (``unidom_torch/ops/cuda/mpm_kernel.py``),
-or it raises. Every tensor of the state has a leading batch dim B.
+which mirrors the JAX oracle operator for operator; for CUDA tensors a
+hand-written macro-step kernel, or it raises: K2 (one block per env,
+``unidom_torch/ops/cuda/mpm_kernel.py``) where it takes the configuration,
+else K3-fwd (many blocks per env, ``unidom_torch/ops/cuda/mpm_big_kernel.py``),
+as ``kernel_route`` decides. Every tensor of the state has a leading batch
+dim B.
 """
 
 import dataclasses
@@ -24,7 +27,8 @@ import numpy as np
 import torch
 
 from unidom_torch.engine.primitives import PrimitiveState, forward_kinematics, make_collider, set_action
-from unidom_torch.ops.cuda.mpm_kernel import mpm_step
+from unidom_torch.ops.cuda.mpm_big_kernel import check_supported_big, mpm_big_step
+from unidom_torch.ops.cuda.mpm_kernel import check_supported, mpm_step
 from unidom_torch.ops.gradops import clamp_grad_norm_tree, clip, scrub_mpm_state
 from unidom_torch.ops.svd3 import svd3
 
@@ -92,6 +96,19 @@ class MPMConf:
 
 
 _OFFSETS = np.array([[i, j, k] for i in range(3) for j in range(3) for k in range(3)])
+
+
+def kernel_route(sim):
+    """The macro-step kernel that runs ``sim`` on the card: ``"k2"`` when
+    K2 takes its configuration (small grids, one block per env), else
+    ``"k3"`` when K3-fwd does (big grids); raises when neither does. As the
+    JAX engine picks its Pallas kernel: small when supported, else big."""
+    try:
+        check_supported(sim)
+        return "k2"
+    except NotImplementedError:
+        check_supported_big(sim)
+        return "k3"
 
 
 class MPMSimulator:
@@ -471,5 +488,7 @@ class MPMSimulator:
 
     def step_batch(self, state: MPMState, action):
         """One macro step for the batch under ``action`` (B, 6 n_primitive):
-        plain on CPU, the CUDA kernel on CUDA."""
+        plain on CPU, on CUDA the kernel that ``kernel_route`` picks."""
+        if state.x.device.type == "cuda" and kernel_route(self) == "k3":
+            return mpm_big_step(self, state, action)
         return mpm_step(self, state, action)

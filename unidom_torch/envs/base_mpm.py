@@ -4,8 +4,13 @@ focus-region re-centering, auto-reset.
 Counterpart of ``unidom_tpu/envs/base_mpm.py``. Before each macro step the
 particle cloud and the primitives are shifted so that the cloud's centre
 sits in the middle of the small simulation grid ``res`` (in x and z), and
-shifted back afterwards. The env owns a ``torch.Generator`` for its random
-resets, as the cloth env does; the JAX env's per-env keys are not ported.
+shifted back afterwards; ``process_pre_step_actions`` moves the macro
+action by the same shift where a task's action holds positions (shape_rope's
+push). The env owns a ``torch.Generator`` for its random resets, as the
+cloth env does; the JAX env's per-env keys are not ported. When an env is
+done, ``auto_reset`` gets the initial state and the current one, as in JAX:
+whip_rope and pour_water redraw around the initial state, shape_rope keeps
+the current one.
 """
 
 import math
@@ -75,7 +80,15 @@ class MPMEnv:
         """(B, 6) macro action -> ((B, n_sub, 6 n_prim) sub-actions, state)."""
         raise NotImplementedError
 
-    def auto_reset(self, state, generator=None, shift=None):
+    def process_pre_step_actions(self, actions, shift):
+        """The macro action (B, 6) in the shifted frame of ``pre_step``
+        (``shift`` (B, 3)); unchanged unless the task's action holds
+        positions."""
+        return actions
+
+    def auto_reset(self, init_state, generator=None, shift=None, state=None):
+        """The state that a done env restarts from, given the initial state
+        and the current one ``state``."""
         raise NotImplementedError
 
     def reward_func(self, state, goal):
@@ -113,6 +126,7 @@ class MPMEnv:
 
         if self.focus_computation:
             state, shift_b = self.pre_step(state)
+            actions = self.process_pre_step_actions(actions, shift_b[:, 0])
         sub_actions, state = self.get_primitive_actions(actions, state)
         state_list = []
         for t in range(sub_actions.shape[1]):
@@ -134,8 +148,9 @@ class MPMEnv:
         if self.aux_reward:
             reward = reward + math.e ** (-contact_distance)
 
-        with torch.no_grad():
-            new_state = self.auto_reset(self.init_state)
+        # the restart takes no gradient, as JAX's stop_gradient
+        leaves, rebuild = tree_flatten(self.auto_reset(self.init_state, state=state))
+        new_state = rebuild([t.detach() for t in leaves])
         state = _select(done, new_state, state)
 
         obs = self.get_obs(state)

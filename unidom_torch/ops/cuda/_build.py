@@ -2,15 +2,18 @@
 with nvcc, and load it with ctypes.
 
 The library goes to ``build/unidom_torch_kernels/`` at the repository root,
-named by a hash of the source and the flags, so the first use after a change
-rebuilds it and later uses load it. Builds write to a temporary name and
-rename, so concurrent processes never load a half-written file. Nothing is
-built on import: only ``build_library`` calls nvcc.
+named by a hash of the source, of every local header it includes
+(``#include "..."``, found in ``csrc``) and of its flags, so the first use
+after a change to any of them rebuilds it and later uses load it. Builds
+write to a temporary name and rename, so concurrent processes never load a
+half-written file. Nothing is built on import: only ``build_library`` calls
+nvcc.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import tempfile
 from pathlib import Path
@@ -22,6 +25,14 @@ NVCC_FLAGS = (
     "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills, in the build log
 )
+# Flags of one source beyond NVCC_FLAGS. K3-fwd rounds every multiply and add
+# apart, as its plain PyTorch version does. With fused multiply-adds, on
+# shape_elasto_plastic's sigma-clip slab (F rebuilt from its SVD each
+# substep) K3-fwd's velocities landed 1.8x further from the float64 plain
+# step than the float32 one's; without, 0.97x (H100, chip_smoke.py's
+# [big-parity]). K2 keeps the contraction: its paths pass their gates with
+# it, and without it K2-bwd took 21% longer.
+SOURCE_FLAGS = {"mpm_big_step.cu": ("-fmad=false",)}
 
 
 def _nvcc():
@@ -35,10 +46,32 @@ def _nvcc():
     return str(nvcc)
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(source: str):
+    """``csrc/<source>`` and the local headers it includes, directly or
+    through another header, in the order first met."""
+    seen, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.append(name)
+        todo += [m.decode() for m in _LOCAL_INCLUDE.findall((CSRC / name).read_bytes())]
+    return seen
+
+
+def _flags(source: str):
+    return NVCC_FLAGS + SOURCE_FLAGS.get(source, ())
+
+
 def library_path(source: str) -> Path:
     """Where the library built from ``csrc/<source>`` lives."""
-    digest = hashlib.sha256((CSRC / source).read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for name in _sources(source):
+        digest.update(name.encode() + b"\0" + (CSRC / name).read_bytes())
+    digest.update(" ".join(_flags(source)).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
 
@@ -52,7 +85,7 @@ def build_library(source: str) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / source)]
+        cmd = [_nvcc(), *_flags(source), "-I", str(CSRC), "-o", tmp, str(CSRC / source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(

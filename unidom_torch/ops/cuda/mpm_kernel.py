@@ -118,9 +118,8 @@ def check_supported(sim):
     if sim.n_particles > MAX_PARTICLES or cells > MAX_CELLS:
         raise NotImplementedError(
             f"mpm_step's kernel holds at most {MAX_PARTICLES} particles and {MAX_CELLS} grid "
-            f"cells, not {sim.n_particles} and {cells}: the big-grid kernel (K3, "
-            "unidom_tpu/ops/pallas/mpm_big_kernel.py) that covers such configurations is "
-            "ported in a later slice")
+            f"cells, not {sim.n_particles} and {cells}: the big-grid kernel K3-fwd "
+            "(unidom_torch/ops/cuda/mpm_big_kernel.py) takes such configurations forward")
 
 
 def _material(name, t, B, P, device):
@@ -204,10 +203,11 @@ def _call(sim, fields, frame, vw, *, what, K=1, hist=None, outs=(None,) * 7, seg
             f"{lib.mpm_step_smem_bytes(P, cells, steps, n_prim, int(what == _BWD))} bytes)")
 
 
-def _inputs(sim, state):
+def _inputs(sim, state, check=check_supported):
     """Check ``state`` (the output of ``sim.prepare``) against what the
-    kernel takes. Returns (fields, frame, vw)."""
-    check_supported(sim)
+    kernel takes (``check(sim)`` for the configuration). Returns (fields,
+    frame, vw)."""
+    check(sim)
     x = state.x
     B, P, dev = x.shape[0], sim.n_particles, x.device
     n_prim, steps = len(state.primitives), sim.conf.steps
