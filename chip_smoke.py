@@ -52,6 +52,23 @@ shape_elasto_plastic (23,940 sigma-clip particles on a 48x32x48 grid) at 16:
     (6 macro steps, 120 K3-fwd calls); pour_water's (K2) at 256 envs;
   - K3-fwd's times at pour_soup 8, 32 and 64 envs and shape_elasto_plastic
     16, beside the plain step and the bound.
+and the big-grid and shape_rope training paths through K2-bwd under SDF
+collision, K3-fwd with checkpoints, K3-seg and K3-bwd:
+  - K2-bwd under collision: shape_rope (64 envs, 133 substeps) at K = 1 and
+    12 and a bowl of water (256 envs), against the float32 and float64
+    plain VJPs with witnesses; zero cotangents stay zero;
+  - K3-bwd with K3-seg: pour_soup, shape_elasto_plastic and the P > 1024
+    config at K = 1 and at the stride rule's K of the training width, every
+    input cotangent held to the same gate; K3-seg alone against the plain
+    forward;
+  - one shape_elasto_plastic update (``minimize``, 16 envs, ep_len 3: 60
+    K3-fwd, 60 K3-bwd and 240 K3-seg phases), its env-steps/s, peak memory
+    and profile, and one update's policy gradient against the plain step's;
+  - one shape_rope ``train`` iteration at 64 envs, its resets through
+    ``host_reset`` (2 pushes of 30 K2-fwd calls, no K2-bwd);
+  - K3-bwd's times at shape_elasto_plastic 16 and pour_soup 8 and 32 envs,
+    K3-seg's, and K2-bwd's under collision on shape_rope, beside the plain
+    VJP and the bounds.
 The counters show that each path launches its own kernels and no other.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
@@ -65,6 +82,7 @@ the package is not beside it, or when any phase fails.
 
 import copy
 import dataclasses
+import functools
 import json
 import math
 import shutil
@@ -138,11 +156,13 @@ B_VJP_PLAIN = 128
 #     scores. A zero, sign-flipped or 2x-scaled gradient is off by about 1
 #     or more in every env and fails; a smaller scale error may pass, and
 #     the backward kernel's scale is held at the main path's shapes by the
-#     one-step gate above. The float64 plain step holds ~40 GB.
+#     one-step gate above. The float64 plain step holds ~40 GB. One noise
+#     seed (9 envs holding cloth on the H100) keeps the gate and takes ~145
+#     s of the script's 1200; a second seed's 9 more envs would take as much.
 B_GRAD = 8
 B_GRAD_FULL = 32
-FULL_SEEDS = (2, 3)
-MIN_HOLDING = 12
+FULL_SEEDS = (2,)
+MIN_HOLDING = 9
 TINY = dict(N=20, n_substeps=10, gripper_radius=0.08)
 # Both kernels, one robot step, on a cloth in the corner of the 80x80 grid:
 # 32 x 40 = 1280 bbox cells, more than a block can have threads (1024), and
@@ -943,23 +963,37 @@ def mpm_slice_envs(state, stop, start=0):
     return rebuild([t[start:stop].contiguous() for t in leaves])
 
 
+def mpm_vjp_names(n_prim):
+    """The inputs ``mpm_vjp`` differentiates, by name: MPM_VJP_INPUTS for one
+    primitive, each primitive's fields numbered for more."""
+    if n_prim == 1:
+        return MPM_VJP_INPUTS
+    return MPM_STATE_INPUTS + tuple(f"primitive{i}.{n}" for i in range(n_prim)
+                                    for n in MPM_PRIM_INPUTS) + ("action",)
+
+
+def mpm_outputs(out):
+    """A macro step's differentiated outputs: x, v, C, F, J and each
+    primitive's position and rotation buffers."""
+    return (out.x, out.v, out.C, out.F, out.J) + tuple(
+        t for p in out.primitives for t in (p.position, p.rotation))
+
+
 def mpm_vjp(step, state, action, cot):
-    """Cotangents of MPM_VJP_INPUTS for one macro step ``step(state,
-    action)`` under the output cotangents ``cot`` (x, v, C, F, J, position,
-    rotation)."""
+    """Cotangents of ``mpm_vjp_names`` for one macro step ``step(state,
+    action)`` under the output cotangents ``cot`` (``mpm_outputs``'s)."""
     import torch
 
-    p = state.primitives[0]
     ins = [getattr(state, n).detach().clone().requires_grad_() for n in MPM_STATE_INPUTS]
-    ins += [getattr(p, n).detach().clone().requires_grad_() for n in MPM_PRIM_INPUTS]
+    for p in state.primitives:
+        ins += [getattr(p, n).detach().clone().requires_grad_() for n in MPM_PRIM_INPUTS]
     ins.append(action.detach().clone().requires_grad_())
-    n = len(MPM_STATE_INPUTS)
-    prim = p.replace(**dict(zip(MPM_PRIM_INPUTS, ins[n:-1])))
-    s = state.replace(**dict(zip(MPM_STATE_INPUTS, ins[:n])), primitives=(prim,))
+    n, k = len(MPM_STATE_INPUTS), len(MPM_PRIM_INPUTS)
+    prims = tuple(p.replace(**dict(zip(MPM_PRIM_INPUTS, ins[n + i * k:n + (i + 1) * k])))
+                  for i, p in enumerate(state.primitives))
+    s = state.replace(**dict(zip(MPM_STATE_INPUTS, ins[:n])), primitives=prims)
     with torch.enable_grad():
-        out = step(s, ins[-1])
-        outs = (out.x, out.v, out.C, out.F, out.J, out.primitives[0].position,
-                out.primitives[0].rotation)
+        outs = mpm_outputs(step(s, ins[-1]))
         grads = torch.autograd.grad(outs, ins, [c.to(outs[0].dtype) for c in cot], allow_unused=True)
     return [torch.zeros_like(t) if g is None else g.detach() for g, t in zip(grads, ins)]
 
@@ -971,10 +1005,8 @@ def mpm_vjp_cot(out, seed=0):
     import torch
 
     rng = np.random.default_rng(seed)
-    fields = (out.x, out.v, out.C, out.F, out.J, out.primitives[0].position,
-              out.primitives[0].rotation)
     return [torch.from_numpy(MPM_COT_SCALE * rng.standard_normal(tuple(t.shape)).astype(np.float32))
-            .to(t.device) for t in fields]
+            .to(t.device) for t in mpm_outputs(out)]
 
 
 def plain_mpm_sim(sim, transfer="scatter"):
@@ -993,10 +1025,12 @@ def mpm_action_checks(what, grads):
         fail(f"{what}: the action's cotangent is 0 in {zero} envs")
 
 
-def mpm_policy_grads(env, seed):
+def mpm_policy_grads(env, seed, checkpoint=False):
     """One update's per-env policy gradients (ep_len 1) from ``env``'s reset,
     noise from numpy ``seed``, through the kernels, the float32 and the
-    float64 plain step (scatter transfer); (B, n_params) float64 each."""
+    float64 plain step (scatter transfer; with ``checkpoint``, each simulator
+    call of the plain steps recomputed in the backward pass instead of kept);
+    (B, n_params) float64 each."""
     import numpy as np
     import torch
 
@@ -1014,28 +1048,37 @@ def mpm_policy_grads(env, seed):
     def per_env(e, policy, state, eps):
         params = list(policy.parameters())
         actions = dist.sample_from_eps(policy(e.get_obs(state)), eps)
+        if e.action_squash == "sigmoid":
+            actions = torch.sigmoid(actions)
         _, reward, _, _ = e.step_diff(actions, state)
         (g_actions,) = torch.autograd.grad(-reward.mean(), actions, retain_graph=True)
         rows = [torch.autograd.grad(actions[i], params, g_actions[i], retain_graph=True)
                 for i in range(B)]
         return torch.cat([torch.stack(g).double().reshape(B, -1) for g in zip(*rows)], 1)
 
+    import torch.utils.checkpoint
+
     env32, env64 = mpm_plain_env(env, torch.float32), mpm_plain_env(env, torch.float64)
     for e in (env32, env64):
         e.simulator.transfer_mode = "scatter"
+        if checkpoint:
+            plain = e.simulator._step_plain
+            e.simulator.step_batch = lambda s, a, plain=plain: torch.utils.checkpoint.checkpoint(
+                plain, s, a, use_reentrant=False)
     return (per_env(env, ts.policy, s0, eps), per_env(env32, ts.policy, s0, eps),
             per_env(env64, copy.deepcopy(ts.policy).double(), mpm_cast(s0, torch.float64),
                     eps.double()))
 
 
-def mpm_bwd_bound(sim, B, K, cells, bottom):
-    """Least time in ms of one K2-bwd launch at B envs with stride K, and
-    what bounds it: the forward once and the adjoint (operations counted
-    above, for this run's touched cells), and the bytes of the history, the
-    cotangents in and out and the inputs."""
+def mpm_bwd_bound(sim, B, K, cells, bottom, cell_flops=FLOP_MPM_BWD_CELL):
+    """Least time in ms of one K2-bwd (or K3-bwd) macro step at B envs with
+    stride K, and what bounds it: the forward once and the adjoint
+    (operations counted above, for this run's touched cells, ``cell_flops``
+    each), and the bytes of the history, the cotangents in and out and the
+    inputs."""
     conf = sim.conf
     P, steps, n_prim = sim.n_particles, conf.steps, len(sim.sdf_names)
-    flops = steps * (FLOP_MPM_BWD_PARTICLE * B * P + FLOP_MPM_BWD_CELL * cells
+    flops = steps * (FLOP_MPM_BWD_PARTICLE * B * P + cell_flops * cells
                      + FLOP_MPM_BWD_FRICTION * bottom)
     hist = B * math.ceil(steps / K) * 25 * P * 4
     cot = 2 * B * P * 25 * 4 + 2 * B * n_prim * (steps + 1) * 7 * 4  # in and out
@@ -1818,6 +1861,504 @@ def big_phases(dev):
     return entry, water_counts["K2-fwd"]
 
 
+# ---- big-grid training (phases 26-31): K2-bwd under SDF collision (the
+# shape_rope family), K3-fwd with checkpoints, K3-seg and K3-bwd (the big
+# grids). Their VJPs are held to the K2-bwd gate above (per_env_gate: per
+# input cotangent, the median over envs of the kernel's error norm against
+# the float64 plain VJP at most PARITY_RATIO times the float32 plain VJP's,
+# plus VJP_FLOOR_REL of the median env's norm), on the plain VJPs' envs.
+B_ROPE_PLAIN = 16  # shape_rope's plain VJPs, float32 and float64: ~52 GB at 16 envs
+ROPE_STRIDE = 12  # the stride rule's K for shape_rope at 64 envs (133 substeps)
+B_BOWL_PLAIN = 32
+B_SOUP_GRAD = 4
+SOUP_STRIDE = 5  # the rule's K for pour_soup at 32 envs (25 substeps)
+# The plain VJPs here recompute each substep in the backward pass
+# (``checkpointed``): pour_soup's float64 one would otherwise keep every
+# substep's full-grid intermediates (25 substeps on 1M cells per env). Its
+# peak at one env sizes how many of the B_SOUP_GRAD envs the plain VJPs
+# hold, within PLAIN_BUDGET bytes.
+PLAIN_BUDGET = 60e9
+# shape_elasto_plastic's VJP on 16 envs: over 4, the median of the per-env
+# errors of the primitive's cotangents (a sum over ~30k cells of terms that
+# cancel) moved 2x from run to run, the float32 plain VJP's as the
+# kernel's, on the H100 (the float64 builds of the kernels are exact)
+B_ELASTO_GRAD = 16
+ELASTO_STRIDE = 4  # the rule's K for shape_elasto_plastic at 16 envs (16 substeps)
+BIG_CONFIG_STRIDE = 3  # a stride above 1 on the P > 1024 config (8 substeps)
+B_BIG_GRAD_PLAIN = 16
+ELASTO_SEGMENT = 2
+B_POLICY_GRAD = 2  # shape_elasto_plastic's policy gradient: ep_len 1, 20 calls
+B_ROPE_TRAIN = 64
+ROPE_EVAL_ENVS = 8
+SOUP_BWD_TIME_B = (8, 32)
+# Operations of collide's adjoint per touched cell and primitive, counted
+# from unidom_torch/csrc/mpm_device.cuh's collide_bwd as FLOP_MPM_CELL above
+# (its recompute of the forward not counted): the blend 15, friction 28,
+# the tangent and its norm 24, the normal component 20, the collider's
+# velocity 3, three quaternion rotations' adjoints 306, the normal's 20, the
+# influence 6, the SDF's value and gradient (box 60, container 75), the
+# inverse quaternion's 35, the offset 3: 520 for a box, 535 for a bowl. A
+# touched cell under collision: the forward's FLOP_MPM_GRID and collide's,
+# the mass normalisation's adjoint 12, and collide's adjoint per primitive.
+FLOP_MPM_COLLIDE_BWD = {"box": 520, "container": 535}
+
+
+def bwd_cell_flops(sim):
+    """Operations of one touched cell's grid ops and their adjoint for
+    ``sim`` (friction on the bottom layers aside)."""
+    if sim.use_position_control:
+        return FLOP_MPM_BWD_CELL
+    return FLOP_MPM_GRID + 12 + sum(FLOP_MPM_COLLIDE[n] + FLOP_MPM_COLLIDE_BWD[n]
+                                    for n in sim.sdf_names)
+
+
+def checkpointed(sim):
+    """Shallow copy of ``sim`` whose plain step recomputes each substep in
+    the backward pass instead of keeping its intermediates
+    (torch.utils.checkpoint): the same function and gradient, with one
+    substep's autograd memory at a time."""
+    import torch.utils.checkpoint
+
+    out = copy.copy(sim)
+    substep = type(sim)._substep
+    out._substep = lambda f, s: torch.utils.checkpoint.checkpoint(substep, out, f, s,
+                                                                  use_reentrant=False)
+    return out
+
+
+def grad_gate(what, sim, state, action, steps, n_plain, zero, witness):
+    """One macro step's VJP through each kernel step of ``steps`` (K ->
+    step(state, action)) on all envs of ``state``, held on its first
+    ``n_plain`` envs to per_env_gate against the float32 and float64 plain
+    VJPs (scatter transfer, ``checkpointed``), the inputs in ``zero`` (and
+    any whose float64 cotangent is 0) 0 on both; the float32 plain VJP of
+    ``witness(state, sim)`` (a (state, plain step) pair) must miss the gate
+    by WITNESS_MARGIN. Returns (the largest |kernel - plain|, the kernels'
+    cotangents by K)."""
+    import torch
+
+    psim = plain_mpm_sim(sim)
+    cot = mpm_vjp_cot(state)  # the outputs have the inputs' shapes
+    names = mpm_vjp_names(len(sim.sdf_names))
+    hs, ha, hc = mpm_slice_envs(state, n_plain), action[:n_plain], [c[:n_plain] for c in cot]
+    plain = checkpointed(psim)._step_plain
+    g32 = mpm_vjp(plain, hs, ha, hc)
+    g64 = mpm_vjp(plain, mpm_cast(hs, torch.float64), ha.double(), [c.double() for c in hc])
+    # an input that the scene leaves untouched (a ground the material never
+    # reaches) has a 0 cotangent in float64: it must be 0 in the kernel too
+    found = [n for n, r in zip(names, g64) if n not in zero and not r.abs().max() > 0]
+    if found:
+        log(f"[{what}] the float64 cotangent is 0 in every env, so must the kernel's be: {found}")
+    err, grads, gates = 0.0, {}, {}
+    for K, step in steps.items():
+        grads[K] = mpm_vjp(step, state, action, cot)
+        torch.cuda.synchronize()
+        err = max(err, per_env_gate(f"{what} K={K}", names, [g[:n_plain] for g in grads[K]], g32,
+                                    g64, zero=tuple(zero) + tuple(found), gates=gates))
+    ws, wstep = witness(hs, psim)
+    wit = mpm_vjp(wstep, ws, ha, hc)
+    ratios = {n: (w.double() - r).reshape(n_plain, -1).norm(dim=1).median().item() / gates[n]
+              for n, w, r in zip(names, wit, g64) if n in gates}
+    log(f"[{what}] witness: median error vs float64 over the gate "
+        + ", ".join(f"{k} {v:.3e}x" for k, v in ratios.items())
+        + f" (the largest must be at least {WITNESS_MARGIN:g}x)")
+    if not max(ratios.values()) >= WITNESS_MARGIN:
+        fail(f"{what}: the witness passes the gate: the gate holds nothing")
+    return err, grads
+
+
+def no_stiffness(s, psim):
+    """The witness: the float32 plain step with mu = lamda = 0."""
+    import torch
+
+    return (s.replace(mu=torch.zeros_like(s.mu), lamda=torch.zeros_like(s.lamda)),
+            checkpointed(psim)._step_plain)
+
+
+def big_grad_phases(dev):
+    """The big-grid training path and the shape_rope family's: K2-bwd under
+    collision on shape_rope and a bowl, K3-bwd and K3-seg on pour_soup,
+    shape_elasto_plastic and the P > 1024 config, K3-seg alone, one
+    shape_elasto_plastic minimize at 16 envs (the main path) with its policy
+    gradient, one shape_rope train iteration at 64 envs through host_reset,
+    and K3-bwd's, K3-seg's and K2-bwd's times beside their bounds. Returns
+    the kernels-line entries of K3-seg and K3-bwd and K2-bwd's launches in
+    the shape_rope iteration."""
+    import numpy as np
+    import torch
+
+    from unidom_torch import make_env
+    from unidom_torch.algorithms.apg import build_apg, train
+    from unidom_torch.ops.cuda import mpm_big_kernel as mbk
+    from unidom_torch.ops.cuda import mpm_kernel as mk
+    from unidom_torch.ops.cuda.cloth_kernel import cloth_robot_step
+    from unidom_torch.ops.cuda.mpm_big_kernel import mpm_big_step
+    from unidom_torch.ops.cuda.mpm_kernel import mpm_step
+
+    def counts():
+        return {"K3-fwd": mpm_big_step.launches, "K3-bwd": mpm_big_step.bwd_launches,
+                "K3-seg": mpm_big_step.seg_launches, "K2-fwd": mpm_step.launches,
+                "K2-bwd": mpm_step.bwd_launches, "K2-seg": mpm_step.seg_launches,
+                "K1-fwd": cloth_robot_step.launches, "K1-bwd": cloth_robot_step.bwd_launches}
+
+    def zero():
+        mpm_big_step.launches = mpm_big_step.bwd_launches = mpm_big_step.seg_launches = 0
+        mpm_big_step.cuda_launches = 0
+        mpm_step.launches = mpm_step.bwd_launches = mpm_step.seg_launches = 0
+        cloth_robot_step.launches = cloth_robot_step.bwd_launches = 0
+
+    # ---- 26. K2-bwd under collision: shape_rope at 64 envs, a bowl at 256
+    t_phase = time.perf_counter()
+    sim, s, a = mpm_config_sim("shape_rope", B_SHAPE_ROPE, dev)
+    rule_k = mk.checkpoint_stride(B_SHAPE_ROPE, sim.n_particles, sim.conf.steps)
+    log(f"[mpm-collide-bwd] shape_rope B={B_SHAPE_ROPE}, P={sim.n_particles}, {sim.conf.steps} "
+        f"substeps, res {sim.conf.res}: stride rule K = {rule_k}")
+    if rule_k != ROPE_STRIDE:
+        fail(f"the stride rule gives shape_rope K = {rule_k}, not {ROPE_STRIDE}")
+    zero()
+    collide_err, rope_grads = grad_gate(
+        "mpm-collide-bwd shape_rope", sim, s, a,
+        {K: functools.partial(lambda s_, a_, K: mpm_step(sim, s_, a_, ckpt_stride=K), K=K)
+         for K in (1, ROPE_STRIDE)}, B_ROPE_PLAIN, ("yield_stress",), no_stiffness)
+    c = counts()
+    if (c["K2-bwd"], c["K2-seg"], c["K3-bwd"]) != (2, math.ceil(sim.conf.steps / ROPE_STRIDE), 0):
+        fail(f"shape_rope's VJPs at K = 1 and {ROPE_STRIDE} launched {c}")
+    names = mpm_vjp_names(1)
+    log(f"[mpm-collide-bwd] shape_rope K=1 vs K={ROPE_STRIDE}, max abs difference over the "
+        f"{B_SHAPE_ROPE} envs: " + ", ".join(
+            f"{n} {(x - y).abs().max().item():.3e}"
+            for n, x, y in zip(names, rope_grads[1], rope_grads[ROPE_STRIDE])))
+    zcot = [torch.zeros_like(c) for c in mpm_vjp_cot(s)]
+    zgrads = mpm_vjp(lambda s_, a_: mpm_step(sim, s_, a_), s, a, zcot)
+    nonzero = [n for n, g in zip(names, zgrads) if g.abs().max() > 0]
+    log(f"[mpm-collide-bwd] zero output cotangents: input cotangents not 0 in {nonzero}")
+    if nonzero:
+        fail(f"K2-bwd turned zero cotangents into non-zero ones in {nonzero}")
+    del rope_grads, zgrads
+    torch.cuda.empty_cache()
+    bsim, bs, ba = mpm_config_sim("bowl_water", B_MPM_CONFIG, dev)
+
+    def position_control(s_, psim):
+        """The witness for water, whose mu and lamda play no part: the bowl
+        as position control instead of collision."""
+        out = copy.copy(psim)
+        out.use_position_control = True
+        return s_, checkpointed(out)._step_plain
+
+    err, _ = grad_gate("mpm-collide-bwd bowl_water", bsim, bs, ba,
+                       {"rule": lambda s_, a_: mpm_step(bsim, s_, a_)}, B_BOWL_PLAIN,
+                       ("mu", "lamda", "yield_stress", "friction"), position_control)
+    collide_err = max(collide_err, err)
+    log(f"[mpm-collide-bwd] bowl_water B={B_MPM_CONFIG}, P={bsim.n_particles}; "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    del sim, s, a, bsim, bs, ba
+    torch.cuda.empty_cache()
+
+    # ---- 27. K3-bwd and K3-seg: pour_soup, shape_elasto_plastic, P > 1024
+    t_phase = time.perf_counter()
+    big_err = 0.0
+    soup = make_env("pour_soup", batch_size=B_SOUP_GRAD, device=dev)
+    ss, sa = big_parity_inputs(soup, dev)
+    ssim = soup.simulator
+    scot = mpm_vjp_cot(ss)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    mpm_vjp(checkpointed(plain_mpm_sim(ssim))._step_plain,
+            mpm_cast(mpm_slice_envs(ss, 1), torch.float64), sa[:1].double(),
+            [c[:1].double() for c in scot])
+    torch.cuda.synchronize()
+    peak64 = torch.cuda.max_memory_allocated() - before
+    n_soup = max(1, min(B_SOUP_GRAD, int(PLAIN_BUDGET // peak64)))
+    log(f"[big-bwd-parity] pour_soup's float64 plain VJP at one env: {peak64 / 1e9:.2f} GB "
+        f"above its inputs, {time.perf_counter() - t0:.2f} s: the plain VJPs hold {n_soup} of the "
+        f"{B_SOUP_GRAD} envs")
+    del scot
+    torch.cuda.empty_cache()
+    cases = [("pour_soup", ssim, ss, sa, n_soup, SOUP_STRIDE, ("yield_stress",))]
+    elasto = make_env("shape_elasto_plastic", batch_size=B_ELASTO_GRAD, device=dev)
+    es, ea = big_parity_inputs(elasto, dev)
+    cases.append(("shape_elasto_plastic", elasto.simulator, es, ea, B_ELASTO_GRAD, ELASTO_STRIDE,
+                  ("yield_stress", "friction")))
+    csim, cs_, ca = big_config_sim(B_BIG_CONFIG, dev)
+    cases.append(("P > 1024", csim, cs_, ca, B_BIG_GRAD_PLAIN, BIG_CONFIG_STRIDE,
+                  ("yield_stress",)))
+    for name, bsim, bs, ba, n_plain, stride, zeros in cases:
+        zero()
+        err, grads = grad_gate(
+            f"big-bwd-parity {name}", bsim, bs, ba,
+            {K: functools.partial(lambda s_, a_, K: mpm_big_step(bsim, s_, a_, ckpt_stride=K),
+                                  K=K) for K in (1, stride)}, n_plain, zeros, no_stiffness)
+        big_err = max(big_err, err)
+        c = counts()
+        if (c["K3-fwd"], c["K3-bwd"], c["K3-seg"], c["K2-bwd"]) != (
+                2, 2, math.ceil(bsim.conf.steps / stride), 0):
+            fail(f"{name}'s VJPs at K = 1 and {stride} launched {c}")
+        names = mpm_vjp_names(len(bsim.sdf_names))
+        log(f"[big-bwd-parity] {name} B={bs.x.shape[0]} (plain on {n_plain}), P={bsim.n_particles}, "
+            f"res {bsim.conf.res}, SDFs {bsim.sdf_names}: K=1 vs K={stride}, max abs difference: "
+            + ", ".join(f"{n} {(x - y).abs().max().item():.3e}"
+                        for n, x, y in zip(names, grads[1], grads[stride])))
+        del grads
+        torch.cuda.empty_cache()
+    log(f"[big-bwd-parity] {time.perf_counter() - t_phase:.2f} s")
+    del soup, ss, sa, csim, cs_, ca, cases
+    torch.cuda.empty_cache()
+
+    # ---- 28. K3-seg alone: one segment's carries against the plain forward's
+    t_phase = time.perf_counter()
+    esim = elasto.simulator
+    with torch.no_grad():
+        prepared = esim.prepare(es, ea)
+        _, hist = mbk.launch_big(esim, prepared, ELASTO_STRIDE)
+        mpm_big_step.seg_launches = 0
+        seg = mbk.mpm_big_step_seg(esim, prepared, hist, ELASTO_STRIDE, ELASTO_SEGMENT)
+        torch.cuda.synchronize()
+        if mpm_big_step.seg_launches != 1:
+            fail("mpm_big_step_seg did not count its launch")
+        t0 = ELASTO_SEGMENT * ELASTO_STRIDE
+        refs = {}
+        for dtype in (torch.float32, torch.float64):
+            st = mpm_cast(prepared, dtype)
+            carries = []
+            for f in range(t0 + seg.shape[1] - 1):
+                if f >= t0:
+                    carries.append(mk.pack_carry(st))
+                st = esim._substep(f, st)
+            carries.append(mk.pack_carry(st))
+            refs[dtype] = torch.stack(carries, 1)
+        big_seg_err = 0.0
+        for name, lo, hi in (("x", 0, 3), ("v", 3, 6), ("C", 6, 15), ("F", 15, 24), ("J", 24, 25)):
+            k, p, r = (t[:, :, lo:hi].double() for t in (seg, refs[torch.float32],
+                                                          refs[torch.float64]))
+            rms_k, rms_p = errors(k, r)[1], errors(p, r)[1]
+            big_seg_err = max(big_seg_err, (k - p).abs().max().item())
+            log(f"[big-seg] {name}: rms error vs float64 over the segment's {seg.shape[1]} "
+                f"carries: K3-seg {rms_k:.3e}, float32 plain {rms_p:.3e} (gate "
+                f"{PARITY_RATIO:g} x {rms_p:.3e} + {MPM_FLOOR[name]:g})")
+            if not torch.isfinite(k).all() or rms_k > PARITY_RATIO * rms_p + MPM_FLOOR[name]:
+                fail(f"K3-seg {name}: further from float64 than the plain forward")
+    log(f"[big-seg] shape_elasto_plastic B={B_ELASTO_GRAD}, segment {ELASTO_SEGMENT} (substeps "
+        f"{t0}-{t0 + seg.shape[1] - 1}) of a K={ELASTO_STRIDE} history; "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    del seg, refs, hist, prepared, elasto, es, ea
+    torch.cuda.empty_cache()
+
+    # ---- 29. the main path: one shape_elasto_plastic minimize at 16 envs
+    t_phase = time.perf_counter()
+    env = make_env("shape_elasto_plastic", batch_size=B_ELASTO, device=dev)
+    calls = EP_LEN * env.PUSH_SUBSTEPS
+    init_ts, minimize, reset_batch, _ = build_apg(env, EP_LEN, device=dev)
+    ts = init_ts(0)
+    first_state = reset_batch(torch.Generator().manual_seed(0))
+    params0 = [p.detach().clone() for p in ts.policy.parameters()]
+    mem_before = torch.cuda.memory_allocated()
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, m = minimize(ts, first_state)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    elasto_counts = counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_seg = math.ceil(env.conf.steps / ELASTO_STRIDE)
+    expect = {"K3-fwd": calls, "K3-bwd": calls, "K3-seg": calls * n_seg, "K2-fwd": 0,
+              "K2-bwd": 0, "K2-seg": 0, "K1-fwd": 0, "K1-bwd": 0}
+    m = {k: v.item() for k, v in m.items()}
+    moved = max((p - q).abs().max().item() for p, q in zip(ts.policy.parameters(), params0))
+    log(f"[big-train] minimize shape_elasto_plastic ep_len {EP_LEN}, B={B_ELASTO} ({calls} "
+        f"simulator calls of {env.conf.steps} substeps, stride K = {ELASTO_STRIDE}): launches "
+        f"{elasto_counts} (expected {expect}); {train_s:.3f} s, "
+        f"{EP_LEN * B_ELASTO / train_s:.2f} env-steps/s; peak memory {peak / 1e9:.3f} GB "
+        f"({mem_before / 1e9:.3f} GB held before); metrics {m}; parameters moved up to "
+        f"{moved:.3e}")
+    if elasto_counts != expect:
+        fail(f"the shape_elasto_plastic update launched {elasto_counts}")
+    if not all(math.isfinite(v) for v in m.values()) or not m["grad_norm"] > 0:
+        fail(f"the shape_elasto_plastic update: metrics {m}")
+    if not moved > 0:
+        fail("the shape_elasto_plastic update left the parameters where they were")
+    profile_device(f"minimize shape_elasto_plastic B={B_ELASTO}", lambda: minimize(ts, first_state),
+                   top=8)
+    del ts, first_state, params0, env, init_ts, minimize, reset_batch
+    torch.cuda.empty_cache()
+    # one update's policy gradient through the kernels against the plain step
+    genv = make_env("shape_elasto_plastic", batch_size=B_POLICY_GRAD, device=dev)
+    k, p, r = mpm_policy_grads(genv, 0, checkpoint=True)
+    policy_err = per_env_gate(f"big-policy-grad B={B_POLICY_GRAD}", ["policy"], [k], [p], [r])
+    if (r.norm(dim=1) == 0).any():
+        fail("a float64 per-env policy gradient of shape_elasto_plastic is 0")
+    log(f"[big-train] {time.perf_counter() - t_phase:.2f} s")
+    del genv, k, p, r
+    torch.cuda.empty_cache()
+
+    # ---- 30. one shape_rope train iteration at 64 envs through host_reset
+    t_phase = time.perf_counter()
+    rope = make_env("shape_rope", batch_size=B_ROPE_TRAIN, device=dev)
+    pushes = rope.DO_RESET_PUSHES * rope.PUSH_SUBSTEPS
+    rope_steps, calls = rope.conf.steps, EP_LEN * rope.PUSH_SUBSTEPS
+    eval_steps = 2 * rope.max_steps * rope.PUSH_SUBSTEPS  # the sampled and the deterministic eval
+    zero()
+    with torch.enable_grad():
+        _, _, rope_reset, _ = build_apg(rope, EP_LEN, device=dev)
+        r0 = rope_reset()
+    reset_counts = counts()
+    log(f"[rope-train] reset_batch (host_reset) at B={B_ROPE_TRAIN}: launches {reset_counts}; "
+        f"the state requires no gradient: {not r0.x.requires_grad}")
+    if (reset_counts["K2-fwd"], reset_counts["K2-bwd"]) != (pushes, 0) or r0.x.requires_grad:
+        fail(f"host_reset launched {reset_counts}")
+    del rope, r0
+    logdir = ROOT / "build" / "chip_smoke_train_shape_rope"
+    shutil.rmtree(logdir, ignore_errors=True)
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    ts, history = train("shape_rope", EP_LEN, B_ROPE_TRAIN, max_it=0, eval_freq=1,
+                        num_eval_envs=ROPE_EVAL_ENVS, logdir=str(logdir), device="cuda")
+    torch.cuda.synchronize()
+    rope_counts = counts()
+    rope_peak = torch.cuda.max_memory_allocated()
+    expect = {"K3-fwd": 0, "K3-bwd": 0, "K3-seg": 0,
+              "K2-fwd": 3 * pushes + eval_steps + calls, "K2-bwd": calls,
+              "K2-seg": calls * math.ceil(rope_steps / ROPE_STRIDE), "K1-fwd": 0, "K1-bwd": 0}
+    rec = history[0]
+    first = torch.load(logdir / "apg_shape_rope_0.pt", map_location=dev, weights_only=True)
+    moved = max((q - first["policy"][key]).abs().max().item()
+                for key, q in ts.policy.state_dict().items())
+    log(f"[rope-train] train(shape_rope, ep_len {EP_LEN}, {B_ROPE_TRAIN} envs, one iteration, "
+        f"an eval of {ROPE_EVAL_ENVS} envs): launches {rope_counts} (expected {expect}: three "
+        f"host resets of {pushes} calls, the evals' {eval_steps}, the update's {calls}); "
+        f"{json.dumps(rec)}; {rec['sps']:.2f} training env-steps/s; peak memory "
+        f"{rope_peak / 1e9:.3f} GB; parameters moved up to {moved:.3e}; "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    if rope_counts != expect:
+        fail(f"the shape_rope iteration launched {rope_counts}")
+    if not all(math.isfinite(rec[key]) for key in ("train_reward", "grad_norm", "sps")) or \
+            not rec["grad_norm"] > 0:
+        fail(f"the shape_rope iteration: {rec}")
+    if not moved > 0:
+        fail("the shape_rope iteration left the parameters where they were")
+    del ts, history
+    torch.cuda.empty_cache()
+
+    # ---- 31. K3-bwd, K3-seg and K2-bwd (collision) times beside their bounds
+    t_phase = time.perf_counter()
+    bwd_times, bwd_bounds, plain_ms = {}, {}, None
+    cases = [("shape_elasto_plastic", B_ELASTO)] + [("pour_soup", B) for B in SOUP_BWD_TIME_B]
+    for name, B in cases:
+        wenv = make_env(name, batch_size=B, device=dev)
+        wsim = wenv.simulator
+        ws, wa = big_parity_inputs(wenv, dev)
+        K = mk.checkpoint_stride(B, wsim.n_particles, wsim.conf.steps)
+        with torch.no_grad():
+            prepared = wsim.prepare(ws, wa)
+            fields, frame, vw = mbk._big_inputs(wsim, prepared, K)
+            wout, hist = mbk.launch_big(wsim, prepared, K)
+            wcot = mpm_vjp_cot(wout)
+            wcot = [c.contiguous() for c in wcot[:5]] + [
+                torch.stack(wcot[5::2], 1).contiguous(), torch.stack(wcot[6::2], 1).contiguous()]
+            key = f"{name} B={B}"
+            bwd_times[key] = cuda_ms(lambda: mbk._backward(wsim, fields, frame, vw, hist, K, wcot),
+                                     reps=5)
+            if K > 1:
+                exact = mbk.launch_big(wsim, prepared, 1)[1]
+                exact_ms = cuda_ms(lambda: mbk._backward(wsim, fields, frame, vw, exact, 1, wcot),
+                                   reps=5)
+                del exact
+            cells, bottom = mpm_work(wsim, ws.x, wout.x)
+            bwd_bounds[key] = mpm_bwd_bound(wsim, B, K, cells, bottom, bwd_cell_flops(wsim))
+            (b_ms, b_by), flops, moved = bwd_bounds[key]
+            log(f"[big-bwd-time] K3-bwd (K = {K}, with its "
+                f"{math.ceil(wsim.conf.steps / K) if K > 1 else 0} K3-seg phases), one {name} "
+                f"simulator call, B={B}: {bwd_times[key]:.4f} ms"
+                + (f" ({exact_ms:.4f} ms at K = 1)" if K > 1 else "")
+                + f"; bound {b_ms:.4f} ms ({b_by}: {FLOP_MPM_BWD_PARTICLE} operations per "
+                f"particle-substep, {bwd_cell_flops(wsim)} per touched cell, {cells / B:.1f} "
+                f"touched cells per env and substep, {flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} "
+                f"MB); K3-bwd at {100 * b_ms / bwd_times[key]:.2f}% of it")
+            if name == "shape_elasto_plastic":
+                seg_ms = cuda_ms(lambda: mbk.mpm_big_step_seg(wsim, prepared, hist, K,
+                                                              ELASTO_SEGMENT), reps=10)
+                L = min(K, wsim.conf.steps - ELASTO_SEGMENT * K)
+                seg_flops = (L - 1) * (FLOP_MPM_PARTICLE * B * wsim.n_particles
+                                       + big_cell_flops(wsim) * cells
+                                       + FLOP_MPM_FRICTION * bottom)
+                seg_bound = bound(nbytes([hist[:, 0]]) * (1 + L) + nbytes([frame, vw]),
+                                  seg_flops)
+                log(f"[big-bwd-time] K3-seg, segment {ELASTO_SEGMENT} ({L} carries) of one "
+                    f"{name} call at B={B}: {seg_ms:.4f} ms; bound {seg_bound[0]:.4f} ms "
+                    f"({seg_bound[1]})")
+                hs, ha = mpm_slice_envs(ws, B_ELASTO_GRAD), wa[:B_ELASTO_GRAD]
+                hc = [c[:B_ELASTO_GRAD] for c in mpm_vjp_cot(wout)]
+                psim = plain_mpm_sim(wsim)
+
+                def plain_segment():
+                    st = prepared
+                    for f in range(ELASTO_SEGMENT * K, ELASTO_SEGMENT * K + L - 1):
+                        st = wsim._substep(f, st)
+                    return st
+
+                seg_plain_ms = cuda_ms(plain_segment, reps=1, warmup=1)
+                with torch.enable_grad():
+                    plain_ms = cuda_ms(lambda: mpm_vjp(psim._step_plain, hs, ha, hc), reps=1,
+                                       warmup=1)
+                log(f"[big-bwd-time] the plain VJP (forward and backward, scatter transfer) of "
+                    f"one {name} call at B={B_ELASTO_GRAD}: {plain_ms:.2f} ms; the plain forward "
+                    f"of the segment's {L - 1} substeps at B={B}: {seg_plain_ms:.2f} ms")
+        del wenv, wsim, ws, wa, prepared, fields, frame, vw, wout, hist, wcot
+        torch.cuda.empty_cache()
+    rsim, rs, ra = mpm_config_sim("shape_rope", B_SHAPE_ROPE, dev)
+    with torch.no_grad():
+        prepared = rsim.prepare(rs, ra)
+        fields, frame, vw = mk._inputs(rsim, prepared)
+        rout, rhist = mk.launch(rsim, prepared, ROPE_STRIDE)
+        rcot = [c.contiguous() for c in mpm_vjp_cot(rout)]
+        rcot[5], rcot[6] = (torch.stack([t], 1).contiguous() for t in rcot[5:])
+        rope_bwd_ms = cuda_ms(lambda: mk._backward(rsim, fields, frame, vw, rhist, ROPE_STRIDE,
+                                                   rcot), reps=5)
+        cells, bottom = mpm_work(rsim, rs.x, rout.x)
+        rb = mpm_bwd_bound(rsim, B_SHAPE_ROPE, ROPE_STRIDE, cells, bottom, bwd_cell_flops(rsim))
+    log(f"[big-bwd-time] K2-bwd under collision (K = {ROPE_STRIDE}, with its "
+        f"{math.ceil(rsim.conf.steps / ROPE_STRIDE)} K2-seg phases), one shape_rope call, "
+        f"B={B_SHAPE_ROPE}: {rope_bwd_ms:.4f} ms; bound {rb[0][0]:.4f} ms ({rb[0][1]}: "
+        f"{bwd_cell_flops(rsim)} operations per touched cell, {cells / B_SHAPE_ROPE:.1f} touched "
+        f"cells per env and substep); K2-bwd at {100 * rb[0][0] / rope_bwd_ms:.2f}% of it; phase "
+        f"31 in {time.perf_counter() - t_phase:.2f} s")
+    del rsim, rs, ra, prepared, fields, frame, vw, rout, rhist, rcot
+    torch.cuda.empty_cache()
+
+    main_key = f"shape_elasto_plastic B={B_ELASTO}"
+    seg_entry = {
+        "name": "mpm_big_step_seg",
+        "route": "cuda",
+        "source": "unidom_torch/csrc/mpm_big_step.cu",
+        "replaces": "unidom_tpu/ops/pallas/mpm_big_kernel.py:1055",
+        "launches": elasto_counts["K3-seg"],
+        "launches_by_path": {"shape_elasto_plastic_minimize": elasto_counts["K3-seg"]},
+        "max_abs_err": big_seg_err,
+        "ms": seg_ms,
+        "plain_ms": seg_plain_ms,
+        "bound_ms": seg_bound[0],
+        "bound_by": seg_bound[1],
+        "library_ms": None,
+    }
+    bwd_entry = {
+        "name": "mpm_big_step_bwd",
+        "route": "cuda",
+        "source": "unidom_torch/csrc/mpm_big_step.cu",
+        "replaces": "unidom_tpu/ops/pallas/mpm_big_kernel.py:1076",
+        "launches": elasto_counts["K3-bwd"],
+        "launches_by_path": {"shape_elasto_plastic_minimize": elasto_counts["K3-bwd"]},
+        "max_abs_err": max(big_err, policy_err),
+        "ms": bwd_times[main_key],
+        "plain_ms": plain_ms,
+        "bound_ms": bwd_bounds[main_key][0][0],
+        "bound_by": bwd_bounds[main_key][0][1],
+        "library_ms": None,
+    }
+    return seg_entry, bwd_entry, rope_counts["K2-bwd"], collide_err
+
+
 def main():
     import torch
 
@@ -1881,6 +2422,11 @@ def main():
     big_entry, water_k2 = big_phases(dev)
     big_entry["launches_by_path"]["whip_rope_run_eval"] = whip_k3
     mpm_entry["launches_by_path"]["pour_water_run_eval"] = water_k2
+    torch.cuda.empty_cache()
+    # ---- big-grid and shape_rope training (phases 26-31, see big_grad_phases)
+    big_seg_entry, big_bwd_entry, rope_k2_bwd, collide_err = big_grad_phases(dev)
+    bwd_entry["launches_by_path"]["shape_rope_train"] = rope_k2_bwd
+    bwd_entry["max_abs_err"] = max(bwd_entry["max_abs_err"], collide_err)
     torch.cuda.empty_cache()
 
     t_phase = time.perf_counter()
@@ -2281,7 +2827,7 @@ def main():
         "bound_ms": bounds[B_MAIN]["bwd"][0],
         "bound_by": bounds[B_MAIN]["bwd"][1],
         "library_ms": None,
-    }, mpm_entry, bwd_entry, seg_entry, big_entry]}))
+    }, mpm_entry, bwd_entry, seg_entry, big_entry, big_seg_entry, big_bwd_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 
 

@@ -3,8 +3,8 @@ plain version) against ``unidom_tpu``'s XLA oracle on a pour_soup-class
 configuration (water and elastic particles under two bowls) and a
 sigma-clip one, and against the JAX package's big-grid Pallas kernel (K3,
 interpret mode) where its windows cover; ``kernel_route`` between K2 and K3;
-the K3 wrapper's refusals, among them a gradient request on a CUDA tensor;
-and the build's hash over the headers a source includes. Inputs are made
+the K3 wrapper's sizes and refusals, and where it sends a gradient request
+on a CUDA tensor; and the build's hash over the headers a source includes. Inputs are made
 with numpy from a seed and fed to both sides."""
 
 import dataclasses
@@ -30,7 +30,6 @@ from unidom_torch.engine.primitives import create_primitive
 from unidom_torch.envs.mpm_tasks import PourSoupConf, ShapeElastoPlasticConf, WhipRopeConf
 from unidom_torch.ops.cuda import _build
 from unidom_torch.ops.cuda.mpm_big_kernel import (
-    check_no_grad,
     check_supported_big,
     list_capacity,
     mpm_big_step,
@@ -195,32 +194,43 @@ def test_big_kernel_sizes():
         check_supported_big(sim, 65536)
 
 
-def test_cpu_step_launches_no_kernel_and_gradient_on_cuda_raises():
-    """On the CPU K3-fwd's wrapper runs the plain step (autograd
-    differentiates it); on a CUDA tensor a gradient request raises, naming
-    K3-bwd, before anything is launched (a stand-in state reports a CUDA
-    device): ``train`` on pour_soup on the card stops there."""
+def test_cpu_step_launches_no_kernel_and_gradient_on_cuda_reaches_k3_bwd(monkeypatch):
+    """On the CPU K3's wrapper runs the plain step (autograd differentiates
+    it); on a CUDA tensor a gradient request goes to the differentiable
+    kernel step (K3-fwd with checkpoints, K3-bwd in the backward) at the
+    stride rule's K, and a rollout to K3-fwd alone (a stand-in state reports
+    a CUDA device; recorders stand in for the kernel steps)."""
+    from unidom_torch.ops.cuda import mpm_big_kernel as mbk
+
     sim, state = _torch_sim("sigma_clip")
-    before = (mpm_big_step.launches, mpm_big_step.cuda_launches, mpm_step.launches)
+    before = (mpm_big_step.launches, mpm_big_step.bwd_launches, mpm_big_step.cuda_launches,
+              mpm_step.launches)
     v = state.v.clone().requires_grad_()
     out = mpm_big_step(sim, state.replace(v=v), torch.from_numpy(_action(1)))
     out.x.sum().backward()
-    assert (mpm_big_step.launches, mpm_big_step.cuda_launches, mpm_step.launches) == before
+    assert (mpm_big_step.launches, mpm_big_step.bwd_launches, mpm_big_step.cuda_launches,
+            mpm_step.launches) == before
     assert torch.isfinite(v.grad).all() and v.grad.abs().max() > 0
 
     big = _sim_of(PourSoupConf, 4, ["container"] * 2)
+    prepared = object()
+    monkeypatch.setattr(big, "prepare", lambda s, a: prepared)
+    calls = []
+    monkeypatch.setattr(mbk, "kernel_step_big", lambda *a: calls.append(("bwd",) + a) or "step")
+    monkeypatch.setattr(mbk, "launch_big", lambda *a: calls.append(("fwd",) + a) or "rollout")
     cuda_state = types.SimpleNamespace(x=types.SimpleNamespace(device=torch.device("cuda", 0),
                                                                shape=(2, 4, 3)))
     action = torch.zeros(2, 12, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K3-bwd"):
-        mpm_big_step(big, cuda_state, action)
-    with pytest.raises(NotImplementedError, match="K3-bwd"):
-        check_no_grad(cuda_state, action)
+    assert mpm_big_step(big, cuda_state, action) == "step"
+    assert mpm_big_step(big, cuda_state, action, ckpt_stride=5) == "step"
     with torch.no_grad():
-        check_no_grad(cuda_state, action)  # a rollout asks for no gradient
+        assert mpm_big_step(big, cuda_state, action) == "rollout"  # a rollout asks for no gradient
+    assert calls == [("bwd", big, prepared, None), ("bwd", big, prepared, 5),
+                     ("fwd", big, prepared)]
     with pytest.raises(ValueError, match="CPU or CUDA"):
         mpm_big_step(sim, state.replace(x=state.x.to("meta")), torch.from_numpy(_action(1)))
-    assert (mpm_big_step.launches, mpm_big_step.cuda_launches) == before[:2]
+    assert (mpm_big_step.launches, mpm_big_step.bwd_launches, mpm_big_step.cuda_launches) == \
+        before[:3]
 
 
 # ---------------------------------------------------------------- the build

@@ -1,8 +1,9 @@
 """The port's whip_rope APG training against ``unidom_tpu`` on the CPU: one
 ``minimize`` from the same first state, policy weights and sampling noise
 (loss, every gradient leaf, the clipped gradient, the parameters after
-Adam), truncation on an MPM state, ``reset_batch``'s ``auto_reset`` arm,
-``train`` drawing a fresh reset per iteration, and the CLI. On grad_test's
+Adam), truncation on an MPM state, ``reset_batch``'s ``auto_reset`` and
+``host_reset`` arms, ``train`` drawing a fresh reset per iteration, the
+CLI, and where a gradient under collision goes on CUDA. On grad_test's
 small whip_rope (a 32-grid with a 16^3 focus region, 8 substeps), where the
 plain macro step runs in a fraction of a second."""
 
@@ -167,7 +168,7 @@ def test_truncated_minimize_on_whip_rope():
     assert float(metrics["grad_norm"]) > 0
 
 
-def test_reset_batch_auto_reset_arm():
+def test_reset_batch_auto_reset_and_host_reset_arms():
     env = _small_env()
     _, _, reset_batch, _ = apg.build_apg(env, 1, device="cpu")
     state = reset_batch(torch.Generator().manual_seed(5))
@@ -175,8 +176,14 @@ def test_reset_batch_auto_reset_arm():
     for a, b in zip(tree_flatten(state)[0], tree_flatten(want)[0]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert not torch.equal(state.x, env.init_state.x)  # shifted
+    # a host_reset env's first state is its reset's
     env.reset_mode = "host_reset"
-    with pytest.raises(NotImplementedError, match="host_reset"):
+    state = reset_batch(torch.Generator().manual_seed(5))
+    want = env.reset(torch.Generator().manual_seed(5))[1]
+    for a, b in zip(tree_flatten(state)[0], tree_flatten(want)[0]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    env.reset_mode = "unknown"
+    with pytest.raises(NotImplementedError, match="unknown"):
         reset_batch(torch.Generator().manual_seed(5))
 
 
@@ -221,18 +228,25 @@ def test_cli_trains_whip_rope_on_the_cpu(tmp_path, monkeypatch):
     assert (tmp_path / "apg_whip_rope_best.pt").exists()
 
 
-def test_gradient_request_under_collision_on_cuda_names_the_shape_rope_slice():
-    """On CUDA tensors the backward kernel covers position control only; a
-    gradient under collision raises instead of differentiating the plain
-    step (a stand-in state reports a CUDA device)."""
+def test_gradient_request_under_collision_on_cuda_reaches_the_backward_kernel(monkeypatch):
+    """On CUDA tensors a gradient under SDF collision goes to the
+    differentiable kernel step (K2-fwd with checkpoints, K2-bwd with
+    collide's adjoint in the backward), as under position control (a
+    stand-in state reports a CUDA device; a recorder stands in for the
+    kernel step)."""
     from unidom_torch.engine.mpm import ELASTIC, MPMSimulator
-    from unidom_torch.ops.cuda.mpm_kernel import mpm_step
+    from unidom_torch.ops.cuda import mpm_kernel
 
     sim = MPMSimulator(GRAD_TEST_CONF, 2, use_position_control=False, device="cpu")
     sim.sdf_names = ["box"]
     sim.material = np.full(4, ELASTIC)
+    prepared = object()
+    monkeypatch.setattr(sim, "prepare", lambda s, a: prepared)
+    calls = []
+    monkeypatch.setattr(mpm_kernel, "kernel_step", lambda *a: calls.append(a) or "step")
     state = types.SimpleNamespace(x=types.SimpleNamespace(device=torch.device("cuda", 0),
                                                           shape=(2, 4, 3)))
     action = torch.zeros(2, 6, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="shape_rope"):
-        mpm_step(sim, state, action)
+    assert mpm_kernel.mpm_step(sim, state, action) == "step"
+    assert mpm_kernel.mpm_step(sim, state, action, ckpt_stride=12) == "step"
+    assert calls == [(sim, prepared, None), (sim, prepared, 12)]

@@ -13,8 +13,9 @@ Counterpart of ``unidom_tpu/algorithms/apg.py`` on one device:
 
 On CUDA tensors every robot step of a cloth rollout runs the cloth kernel
 forward and, in the backward pass, the cloth kernel backward; every macro
-step of an MPM rollout (whip_rope) runs the MPM kernel forward (K2-fwd) and,
-when training, the MPM kernel backward (K2-bwd) in the backward pass.
+step of an MPM rollout runs an MPM macro-step kernel forward (K2-fwd, or
+K3-fwd on big grids) and, when training, its backward (K2-bwd or K3-bwd) in
+the backward pass.
 """
 
 import argparse
@@ -191,9 +192,12 @@ def build_apg(
 
     def reset_batch(generator=None):
         """First state of an iteration: ``env.reset(generator)`` for
-        ``reset_mode == "reset"`` envs (cloth), ``env.auto_reset`` of the
-        env's initial state for ``"auto_reset"`` envs (MPM)."""
-        if env.reset_mode == "reset":
+        ``reset_mode == "reset"`` envs (cloth) and ``"host_reset"`` envs (the
+        shape_rope family, whose reset pushes run forward on the env's batch;
+        with one device JAX's tiling over devices is the identity),
+        ``env.auto_reset`` of the env's initial state for ``"auto_reset"``
+        envs (whip_rope, pour_water, pour_soup)."""
+        if env.reset_mode in ("reset", "host_reset"):
             return env.reset(generator)[1]
         if env.reset_mode == "auto_reset":
             return env.auto_reset(env.init_state, generator)
@@ -269,6 +273,13 @@ def train(
     eval_env = env_functions[env_name](batch_size=num_eval_envs, seed=seed + 666,
                                        device=device, **env_kwargs)
     device = env.device
+    if env.reset_mode == "host_reset":
+        # JAX's host resets draw their pushes from numpy's global state, which
+        # each env's constructor reseeds: the eval env's, seed + 666, last.
+        # Both envs share that one stream, drawn in JAX's order: the training
+        # env's first reset, the eval env's, then one per iteration.
+        env.rng = eval_env.rng = np.random.RandomState(seed + 666)
+        env.reset()
     _, eval_first_state = eval_env.reset(torch.Generator().manual_seed(seed + 666))
 
     init_ts, minimize, reset_batch, run_eval_ = build_apg(
@@ -282,8 +293,8 @@ def train(
         print(f"resumed from {resume}")
 
     # Cloth envs ("reset") keep one reset for every iteration (reference
-    # parity) unless --randomize_reset; "auto_reset" envs (MPM) draw a fresh
-    # one each iteration.
+    # parity) unless --randomize_reset; "auto_reset" and "host_reset" envs
+    # (MPM) draw a fresh one each iteration.
     fixed_reset = env.reset_mode == "reset" and not randomize_reset
     reset_gen = torch.Generator().manual_seed(seed)
     history = []

@@ -18,8 +18,8 @@ Counterpart of ``unidom_tpu/envs/mpm_tasks.py``:
 - shape_elasto_plastic: shape_rope's pusher on a sigma-clip plastic slab of
   23,940 particles on a 96-grid with a 48x32x48 focus region, a push capped
   at 0.1 over 20 sub-steps, 6 macro steps.
-The shape_rope family runs forward here; its training (``host_reset``) waits
-for a later slice.
+The shape_rope family trains through ``host_reset``: each iteration's first
+state is ``reset``'s, its random pushes run forward (``random_push``).
 """
 
 import dataclasses
@@ -174,7 +174,9 @@ class ShapeRopeEnv(MPMEnv):
         conf = dataclasses.replace(conf or ShapeRopeConf)
         super().__init__(conf, batch_size, max_steps, seed, focus_computation=True, device=device)
         self.aux_reward = aux_reward
-        self.rng = np.random.RandomState(seed)  # the reset pushes (JAX: numpy's global state)
+        # the reset pushes (JAX: numpy's global state, which this constructor
+        # seeds; apg.train shares one stream between its two envs, as JAX's)
+        self.rng = np.random.RandomState(seed)
         state = self.simulator.add_box(
             state=None, hardness=1.0, size=self.ROPE_WIDTH, init_pos=self.ROPE_INIT_POS,
             z_rotation_angle=0.0, material=self.ROPE_MATERIAL, density=self.ROPE_DENSITY,

@@ -1,33 +1,40 @@
-"""MPM macro step on big grids on the GPU: wrapper of the CUDA kernel of
+"""MPM macro step on big grids on the GPU: wrapper of the CUDA kernels of
 ``unidom_torch/csrc/mpm_big_step.cu``.
 
-Replaces the forward of ``build_mpm_big_step_kernel`` in
+Replaces ``build_mpm_big_step_kernel`` in
 ``unidom_tpu/ops/pallas/mpm_big_kernel.py``: K3-fwd (``fwd_call`` ->
 ``fwd_kernel``), one macro step of ``conf.steps`` substeps for the
 configurations that K2 (``mpm_kernel.py``, one block per env) does not take,
 such as pour_soup (7,694 particles, a 128x64x128 grid) and
-shape_elasto_plastic (23,940 particles). Its segment recompute (K3-seg) and
-backward (K3-bwd) come with big-grid training.
+shape_elasto_plastic (23,940 particles), writing the carry every K substeps
+when a gradient is wanted; K3-seg (``seg_hist_call``, a segment's carries
+recomputed from its checkpoint) and K3-bwd (``bwd_step_call`` under the
+reverse scan ``_core_bwd``, the macro step's adjoint, with K3-seg as a
+phase of each segment when K > 1).
 
 ``mpm_big_step`` runs the plain PyTorch macro step
-(``MPMSimulator._step_plain``) for CPU tensors. For CUDA tensors it runs the
-macro step's head (``MPMSimulator.prepare``: scrub, action clamp and clip,
-``set_action``, in torch) and K3-fwd, or raises: a gradient request raises
-``NotImplementedError`` (K3-bwd is not ported), and nothing falls back to
-autograd through the plain step. ``mpm_big_step.launches`` counts macro
-steps through K3-fwd (the unit of the Pallas kernel),
-``mpm_big_step.cuda_launches`` the CUDA launches inside them
-(4 x steps + 2 each).
+(``MPMSimulator._step_plain``, differentiated by autograd) for CPU tensors.
+For CUDA tensors it runs the macro step's head (``MPMSimulator.prepare``:
+scrub, action clamp and clip, ``set_action``, in torch) and the kernels, or
+raises: under ``no_grad`` (or when nothing requires a gradient) K3-fwd
+without history; otherwise ``_MPMBigStepFn``, whose backward launches
+K3-bwd. Nothing falls back to autograd through the plain step.
+``mpm_big_step.launches`` counts macro steps through K3-fwd (the unit of the
+Pallas kernel), ``mpm_big_step.bwd_launches`` those through K3-bwd,
+``mpm_big_step.seg_launches`` the K3-seg phases that K3-bwd ran (plus calls
+of ``mpm_big_step_seg``), ``mpm_big_step.cuda_launches`` the CUDA launches
+inside all of them (4 x steps + 2 per K3-fwd macro step).
 
 The particle state crosses in the simulator's layout ((B, P, 3),
-(B, P, 3, 3), (B, P)); the kernel keeps it per env in device memory as
+(B, P, 3, 3), (B, P)); the kernels keep it per env in device memory as
 (B, 25, P), component-major, with a (B, cells) float4 grid and mark, a
 touched-cell list per env and the primitives' frames, all scratch from
-``torch.empty``.
+``torch.empty``; the history is (B, ceil(steps / K), 25, P).
 """
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -39,9 +46,11 @@ from unidom_torch.ops.cuda.mpm_kernel import (
     _device_and_stream,
     _inputs,
     _material,
+    _pointer_array,
     _ptr,
     _rebuild,
     _requires_grad,
+    checkpoint_stride,
 )
 
 SOURCE = "mpm_big_step.cu"
@@ -51,14 +60,16 @@ ROW = 7  # a primitive's frame in the kernel's rows: position 3, rotation 4
 INT_MAX = 2**31 - 1
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FWD, _SEG, _BWD = 0, 1, 2
 
 
 @functools.cache
 def _lib():
     lib = load_library(SOURCE)
     lib.mpm_big_step_launch.argtypes = (
-        [_PTR] * 5 + [_PTR, _INT, _INT] * 3 + [_PTR, _INT] + [_PTR] * 4 + [_PTR] * 9
-        + [_PTR] * 4 + [_INT, _INT] + [_INT] * 10 + [_FLOAT] * 8 + [_INT, _PTR, _PTR]
+        [_PTR] * 5 + [_PTR, _INT, _INT] * 3 + [_PTR, _INT] + [_PTR] * 4 + [_PTR] * 10
+        + [_PTR] * 4 + [_INT, _INT] + [_INT] * 10 + [_FLOAT] * 8 + [_INT, _PTR]
+        + [_PTR, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]
     )
     lib.mpm_big_step_launch.restype = ctypes.c_int
     lib.unidom_cuda_error_string.argtypes = [ctypes.c_int]
@@ -73,22 +84,50 @@ def list_capacity(sim):
     return min(27 * sim.n_particles, rx * ry * rz)
 
 
-def scratch_bytes(sim, B):
+# K3-bwd's scratch per env beside K3-fwd's, laid out as the source reads it:
+# the grid cotangent (4 floats per cell),
+# each touched cell before the grid ops (4 per list slot), the carry's
+# cotangent (25 per particle) and the current frames' (7 per primitive of
+# MAX_PRIMITIVES); in double, G2P's adjoint's sums (4 per cell), the Lame
+# and yield cotangents (3 per particle) and the env's sums (N_EACC).
+N_EACC = MAX_PRIMITIVES * 22 + 1 + 3
+
+
+def bwd_scratch(sim):
+    """(floats, doubles) of K3-bwd's scratch per env."""
+    rx, ry, rz = sim.conf.res
+    P = sim.n_particles
+    return (4 * rx * ry * rz + 4 * list_capacity(sim) + N_COMP * P + MAX_PRIMITIVES * 7,
+            4 * rx * ry * rz + 3 * P + N_EACC)
+
+
+def scratch_bytes(sim, B, ckpt_stride=None):
     """Device memory of one K3-fwd macro step at ``B`` envs: the outputs
-    and the kernel's scratch (grid and marks, carry, touched lists, frames)."""
+    and the kernel's scratch (the float4 grid and marks, carry, touched
+    lists, frames); with ``ckpt_stride`` K, also what a gradient adds: P2G's
+    sums in double (32 B per cell), the history of a checkpoint every K
+    substeps, the output and input cotangents, K3-bwd's scratch and, for
+    K > 1, a segment of K carries."""
     conf = sim.conf
     rx, ry, rz = conf.res
     P, n_prim = sim.n_particles, len(sim.sdf_names)
     per_env = (rx * ry * rz * 20 + 4 * list_capacity(sim) + 4 + 2 * 4 * N_COMP * P
                + 4 * (conf.steps + 1) * n_prim * (ROW + 7))
+    if ckpt_stride is not None:
+        K = ckpt_stride
+        floats, doubles = bwd_scratch(sim)
+        per_env += (4 * math.ceil(conf.steps / K) * N_COMP * P + 2 * 4 * N_COMP * P
+                    + 32 * rx * ry * rz + 4 * floats + 8 * doubles
+                    + (4 * K * N_COMP * P if K > 1 else 0))
     return B * per_env
 
 
-def check_supported_big(sim, B=None):
-    """Raise unless K3-fwd takes ``sim``'s configuration at ``B`` envs (by
+def check_supported_big(sim, B=None, ckpt_stride=None):
+    """Raise unless K3 takes ``sim``'s configuration at ``B`` envs (by
     default the simulator's batch): the SDFs it evaluates, at most
     MAX_PRIMITIVES primitives, offsets within an env that fit 32 bits, and,
-    on a GPU, the device memory."""
+    on a GPU, the device memory (with the backward's at stride
+    ``ckpt_stride`` when one is given)."""
     conf = sim.conf
     B = sim.batch_size if B is None else B
     cells = conf.res[0] * conf.res[1] * conf.res[2]
@@ -106,77 +145,189 @@ def check_supported_big(sim, B=None):
             f"particles in 32 bits and takes 1 to 65535 envs, not {B}")
     if sim.device.type == "cuda":
         total = torch.cuda.get_device_properties(sim.device).total_memory
-        need = scratch_bytes(sim, B)
+        need = scratch_bytes(sim, B, ckpt_stride)
         if need > total:
             raise NotImplementedError(
                 f"mpm_big_step at {B} envs needs {need / 2**30:.1f} GiB of device memory, more "
                 f"than the card's {total / 2**30:.1f} GiB")
 
 
-def launch_big(sim, state):
-    """K3-fwd on ``state``, the output of ``sim.prepare``: the ``conf.steps``
-    substeps and the buffers' row 0 <- row steps. Returns the new state.
-    Raises on anything the kernel does not take."""
-    B, P, dev = state.x.shape[0], sim.n_particles, state.x.device
-    fields, frame, vw = _inputs(sim, state, lambda s: check_supported_big(s, B))
+def _call_big(sim, fields, frame, vw, *, what, K=1, hist=None, outs=(None,) * 7, segment=0,
+              seg_out=None, bwd_in=None, bwd_out=None):
+    """One ``mpm_big_step_launch``: K3-fwd, K3-seg or K3-bwd (``what``) on
+    the forward's inputs ``fields`` (x, v, C, F, J, mu, lamda, yield_stress,
+    friction; x..J may be None but for K3-fwd). Returns the CUDA launches."""
     conf = sim.conf
+    B, P, dev = frame.shape[0], sim.n_particles, frame.device
     n_prim, steps = frame.shape[1], conf.steps
     rx, ry, rz = conf.res
     cells, cap = rx * ry * rz, list_capacity(sim)
     f32 = dict(dtype=torch.float32, device=dev)
-    outs = [torch.empty_like(fields[n]) for n in ("x", "v", "C", "F", "J")]
-    traj_pos = torch.empty((B, n_prim, steps + 1, 3), **f32)
-    traj_rot = torch.empty((B, n_prim, steps + 1, 4), **f32)
     grid = torch.empty((B, cells, 4), **f32)
+    # P2G's sums in double where a gradient is wanted (see the source)
+    gacc = (torch.empty((B, cells, 4), dtype=torch.float64, device=dev)
+            if hist is not None else None)
     mark = torch.empty((B, cells), dtype=torch.int32, device=dev)
     carry = torch.empty((B, N_COMP, P), **f32)
     rows = torch.empty((B, steps + 1, n_prim, ROW), **f32)
     touched = torch.empty((B, cap), dtype=torch.int32, device=dev)
     n_touched = torch.empty((B,), dtype=torch.int32, device=dev)
+    bwd_floats = bwd_doubles = None
+    if what == _BWD:
+        floats, doubles = bwd_scratch(sim)
+        bwd_floats = torch.empty((B * floats,), **f32)
+        bwd_doubles = torch.empty((B * doubles,), dtype=torch.float64, device=dev)
     grid_blocks = -(-min(cap, P) // THREADS)
     sdf_kinds = sum(SDF_KINDS[n] << i for i, n in enumerate(sim.sdf_names))
     device, stream = _device_and_stream(dev)
     n_launches = ctypes.c_int(0)
     lib = _lib()
     err = lib.mpm_big_step_launch(
-        *(fields[n].data_ptr() for n in ("x", "v", "C", "F", "J")),
+        *(_ptr(fields[n]) for n in ("x", "v", "C", "F", "J")),
         *_material("mu", fields["mu"], B, P, dev),
         *_material("lamda", fields["lamda"], B, P, dev),
         *_material("yield_stress", fields["yield_stress"], B, P, dev),
         fields["friction"].data_ptr(), fields["friction"].stride(0),
         sim._h.data_ptr(), sim._material.data_ptr(), frame.data_ptr(), vw.data_ptr(),
-        *(_ptr(t) for t in outs), traj_pos.data_ptr(), traj_rot.data_ptr(),
-        grid.data_ptr(), mark.data_ptr(), carry.data_ptr(), rows.data_ptr(),
-        touched.data_ptr(), n_touched.data_ptr(), cap, grid_blocks,
+        *(_ptr(t) for t in outs), grid.data_ptr(), _ptr(gacc), mark.data_ptr(),
+        carry.data_ptr(),
+        rows.data_ptr(), touched.data_ptr(), n_touched.data_ptr(), cap, grid_blocks,
         B, P, n_prim, steps, rx, ry, rz, conf.n_grid, int(sim.use_position_control), sdf_kinds,
         conf.dt, conf.dx, -conf.dt * conf.p_vol * 4.0, conf.dx**2, conf.p_mass,
-        *(float(g) for g in conf.gravity), device, stream, ctypes.byref(n_launches),
+        *(float(g) for g in conf.gravity), device, stream,
+        _ptr(hist), K, what, segment, _ptr(seg_out), _pointer_array(bwd_in),
+        _pointer_array(bwd_out), _ptr(bwd_floats), _ptr(bwd_doubles), ctypes.byref(n_launches),
     )
     mpm_big_step.cuda_launches += n_launches.value
     if err != 0:
         msg = lib.unidom_cuda_error_string(err).decode()
+        name = ("K3-fwd", "K3-seg", "K3-bwd")[what]
         raise RuntimeError(
-            f"mpm_big_step K3-fwd launch failed: {msg} (error {err}; B={B}, P={P}, "
-            f"res={conf.res}, after {n_launches.value} launches)")
+            f"mpm_big_step {name} launch failed: {msg} (error {err}; B={B}, P={P}, "
+            f"res={conf.res}, K={K}, after {n_launches.value} launches)")
+    return n_launches.value
+
+
+def _history(sim, B, K):
+    return torch.empty((B, math.ceil(sim.conf.steps / K), N_COMP, sim.n_particles),
+                       dtype=torch.float32, device=sim._h.device)
+
+
+def _forward(sim, fields, frame, vw, K=1, hist=None):
+    """K3-fwd. Returns (x, v, C, F, J, traj_pos, traj_rot)."""
+    B, n_prim, steps = frame.shape[0], frame.shape[1], sim.conf.steps
+    f32 = dict(dtype=torch.float32, device=frame.device)
+    outs = [torch.empty_like(fields[n]) for n in ("x", "v", "C", "F", "J")]
+    traj_pos = torch.empty((B, n_prim, steps + 1, 3), **f32)
+    traj_rot = torch.empty((B, n_prim, steps + 1, 4), **f32)
+    _call_big(sim, fields, frame, vw, what=_FWD, K=K, hist=hist,
+              outs=(*outs, traj_pos, traj_rot))
     mpm_big_step.launches += 1
-    return _rebuild(state, (*outs, traj_pos, traj_rot))
+    return (*outs, traj_pos, traj_rot)
 
 
-def check_no_grad(state, action):
-    """Raise ``NotImplementedError`` when a gradient is requested through
-    K3-fwd: its backward (K3-bwd) is not ported."""
-    if torch.is_grad_enabled() and _requires_grad(state, action):
-        raise NotImplementedError(
-            "mpm_big_step has no backward kernel: K3-bwd (unidom_tpu/ops/pallas/"
-            "mpm_big_kernel.py:1076) comes with big-grid training. Run the big-grid envs forward "
-            "only, under torch.no_grad() or on tensors that need no gradient")
+def _big_inputs(sim, state, ckpt_stride=None):
+    B = state.x.shape[0]
+    return _inputs(sim, state, lambda s: check_supported_big(s, B, ckpt_stride))
 
 
-def mpm_big_step(sim, state, action):
+def launch_big(sim, state, ckpt_stride=None):
+    """K3-fwd on ``state``, the output of ``sim.prepare``: the ``conf.steps``
+    substeps and the buffers' row 0 <- row steps. Returns the new state, or
+    with ``ckpt_stride`` K, (the new state, the history of a checkpoint
+    every K substeps). Raises on anything the kernel does not take."""
+    fields, frame, vw = _big_inputs(sim, state, ckpt_stride)
+    if ckpt_stride is None:
+        return _rebuild(state, _forward(sim, fields, frame, vw))
+    hist = _history(sim, frame.shape[0], ckpt_stride)
+    return _rebuild(state, _forward(sim, fields, frame, vw, ckpt_stride, hist)), hist
+
+
+def mpm_big_step_seg(sim, state, hist, ckpt_stride, segment):
+    """K3-seg alone: segment ``segment`` of the macro step from ``state``
+    (the output of ``sim.prepare``) recomputed from its checkpoint in
+    ``hist`` (``launch_big(..., ckpt_stride)``'s). Returns its L input
+    carries, (B, L, 25, P)."""
+    fields, frame, vw = _big_inputs(sim, state)
+    K, steps = ckpt_stride, sim.conf.steps
+    L = min(K, steps - segment * K)
+    out = torch.empty((frame.shape[0], L, N_COMP, sim.n_particles), dtype=torch.float32,
+                      device=frame.device)
+    _call_big(sim, fields, frame, vw, what=_SEG, K=K, hist=hist, segment=segment, seg_out=out)
+    mpm_big_step.seg_launches += 1
+    return out
+
+
+class _MPMBigStepFn(torch.autograd.Function):
+    """One big-grid macro step's substeps through K3-fwd, with K3-bwd as its
+    backward. Inputs: the simulator, the checkpoint stride, x, v, C, F, J,
+    mu, lamda, yield_stress, friction, the primitives' frame and per-substep
+    v and w. Outputs: x, v, C, F, J and the (B, n_prim, steps + 1, 3 / 4)
+    position and rotation rows."""
+
+    @staticmethod
+    def forward(ctx, sim, K, x, v, C, F, J, mu, lamda, ys, friction, frame, vw):
+        fields = dict(x=x, v=v, C=C, F=F, J=J, mu=mu, lamda=lamda, yield_stress=ys,
+                      friction=friction)
+        hist = _history(sim, x.shape[0], K)
+        outs = _forward(sim, fields, frame, vw, K, hist)
+        ctx.sim, ctx.K = sim, K
+        ctx.save_for_backward(hist, mu, lamda, ys, friction, frame, vw)
+        return outs
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *cots):
+        hist, mu, lamda, ys, friction, frame, vw = ctx.saved_tensors
+        fields = dict(x=None, v=None, C=None, F=None, J=None, mu=mu, lamda=lamda,
+                      yield_stress=ys, friction=friction)
+        grads = _backward(ctx.sim, fields, frame, vw, hist, ctx.K,
+                          [c.contiguous() for c in cots])
+        return (None, None, *grads)
+
+
+def _backward(sim, fields, frame, vw, hist, K, cots):
+    """K3-bwd: the cotangents of x, v, C, F, J, mu, lamda, yield_stress,
+    friction, frame and vw from those of the outputs ``cots``."""
+    B, P, dev = frame.shape[0], sim.n_particles, frame.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    grads = [torch.empty((B, P, 3), **f32), torch.empty((B, P, 3), **f32),
+             torch.empty((B, P, 3, 3), **f32), torch.empty((B, P, 3, 3), **f32),
+             torch.empty((B, P), **f32)]
+    grads += [torch.empty(fields[n].shape, **f32) for n in ("mu", "lamda", "yield_stress")]
+    grads += [torch.empty((B, 1), **f32), torch.empty_like(frame), torch.empty_like(vw)]
+    seg = torch.empty((B, K, N_COMP, P), **f32) if K > 1 else None
+    _call_big(sim, fields, frame, vw, what=_BWD, K=K, hist=hist, seg_out=seg, bwd_in=cots,
+              bwd_out=grads)
+    mpm_big_step.bwd_launches += 1
+    if K > 1:
+        mpm_big_step.seg_launches += math.ceil(sim.conf.steps / K)
+    return grads
+
+
+def kernel_step_big(sim, state, ckpt_stride=None):
+    """The substeps of ``state`` (the output of ``sim.prepare``) through
+    ``_MPMBigStepFn``: K3-fwd with a checkpoint every ``ckpt_stride``
+    substeps (by default ``checkpoint_stride``'s rule) and K3-bwd in the
+    backward."""
+    B, P, steps = state.x.shape[0], sim.n_particles, sim.conf.steps
+    K = checkpoint_stride(B, P, steps) if ckpt_stride is None else int(ckpt_stride)
+    if not 1 <= K <= steps:
+        raise ValueError(f"ckpt_stride must be in [1, {steps}], not {K}")
+    fields, frame, vw = _big_inputs(sim, state, K)
+    outs = _MPMBigStepFn.apply(sim, K, *(fields[n] for n in ("x", "v", "C", "F", "J", "mu",
+                                                               "lamda", "yield_stress",
+                                                               "friction")),
+                               frame, vw)
+    return _rebuild(state, outs)
+
+
+def mpm_big_step(sim, state, action, ckpt_stride=None):
     """One macro step of ``sim`` for the batch ``state`` under ``action``
-    (B, 6 n_primitive). CPU tensors take the plain PyTorch step; CUDA
-    tensors take K3-fwd, which raises on anything it does not take and on a
-    gradient request."""
+    (B, 6 n_primitive). CPU tensors take the plain PyTorch step (autograd
+    differentiates it; ``ckpt_stride`` does not apply); CUDA tensors take
+    the kernels, which raise on anything they do not take. ``ckpt_stride``
+    overrides the checkpoint stride rule of a differentiable step."""
     dev = state.x.device
     if dev.type == "cpu":
         return sim._step_plain(state, action)
@@ -185,9 +336,12 @@ def mpm_big_step(sim, state, action):
     n_act = 6 * len(sim.sdf_names)
     if tuple(action.shape) != (state.x.shape[0], n_act):
         raise ValueError(f"action has shape {tuple(action.shape)}, expected (B, {n_act})")
-    check_no_grad(state, action)
+    if torch.is_grad_enabled() and _requires_grad(state, action):
+        return kernel_step_big(sim, sim.prepare(state, action), ckpt_stride)
     return launch_big(sim, sim.prepare(state, action))
 
 
 mpm_big_step.launches = 0
+mpm_big_step.bwd_launches = 0
+mpm_big_step.seg_launches = 0
 mpm_big_step.cuda_launches = 0

@@ -14,9 +14,8 @@ differentiated by autograd) for CPU tensors. For CUDA tensors it runs the
 macro step's head (``MPMSimulator.prepare``: scrub, action clamp and clip,
 ``set_action``, in torch) and the kernels, or raises: under ``no_grad`` (or
 when nothing requires a gradient) K2-fwd without history; otherwise
-``_MPMStepFn``, whose backward launches K2-bwd. The backward covers position
-control; collision's adjoint comes with the shape_rope slice, and a gradient
-request under collision raises. ``mpm_step.launches``,
+``_MPMStepFn``, whose backward launches K2-bwd, under position control or
+SDF collision. ``mpm_step.launches``,
 ``mpm_step.bwd_launches`` and ``mpm_step.seg_launches`` count launches of
 K2-fwd and K2-bwd and the K2-seg phases that K2-bwd ran (plus launches of
 ``mpm_step_seg``).
@@ -365,11 +364,6 @@ def mpm_step(sim, state, action, ckpt_stride=None):
     if tuple(action.shape) != (state.x.shape[0], n_act):
         raise ValueError(f"action has shape {tuple(action.shape)}, expected (B, {n_act})")
     if torch.is_grad_enabled() and _requires_grad(state, action):
-        if not sim.use_position_control:
-            raise NotImplementedError(
-                "mpm_step's backward kernel (K2-bwd) covers position control; the adjoint of "
-                "SDF collision comes with the shape_rope slice. Run collision forward only, "
-                "under torch.no_grad() or on tensors that need no gradient")
         return kernel_step(sim, sim.prepare(state, action), ckpt_stride)
     return launch(sim, sim.prepare(state, action))
 

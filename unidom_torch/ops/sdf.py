@@ -10,10 +10,13 @@ The JAX package takes the normal as ``jax.grad`` of the SDF, normalised.
 ``sdf_normal`` writes that gradient out and keeps ``jax.grad``'s conventions
 where the SDF has a kink, because grid nodes sit on a lattice and hit the
 kinks exactly (a primitive at x = 0.5 sits on node 32 of 64):
-  - ``abs'(0) = 1`` (``jax.lax.abs``'s derivative is +1 for x >= 0);
+  - ``abs'(0) = 1`` (``jax.lax.abs``'s derivative is +1 for x >= 0), in the
+    normal and, through ``_abs``, in autograd of the distance and of the
+    normal (``torch.abs``'s derivative is 0 at 0);
   - ``jnp.maximum`` and ``jnp.clip`` split the derivative 1/2 and 1/2 at a tie;
   - ``jnp.max`` over an axis splits it equally among the tied entries.
-``unidom_torch/csrc/mpm_step.cu`` evaluates the same formulas on the card.
+``unidom_torch/csrc/mpm_device.cuh`` evaluates the same formulas, and their
+adjoint, on the card.
 """
 
 import torch
@@ -23,9 +26,14 @@ def _length(x):
     return torch.sqrt(torch.sum(x * x, dim=-1) + 1e-12)
 
 
+def _abs(x):
+    """|x| with ``jax.lax.abs``'s derivative: +1 for x >= 0, else -1."""
+    return torch.where(x >= 0, x, -x)
+
+
 def sdf_box(size, p):
     """Axis-aligned box with half-extents ``size``."""
-    q = torch.abs(p) - size
+    q = _abs(p) - size
     out = _length(torch.clamp(q, min=0.0))
     inner = torch.clamp(q.max(dim=-1).values, max=0.0)
     return out + inner
@@ -44,7 +52,7 @@ def sdf_container(size, p):
     t = size[..., 2]
     cut = h * q0 < w * q1
     rim = torch.sqrt((q0 - w) ** 2 + (q1 - h) ** 2 + 1e-12) - t
-    shell = torch.abs(torch.sqrt(q0 * q0 + q1 * q1 + 1e-12) - r) - t
+    shell = _abs(torch.sqrt(q0 * q0 + q1 * q1 + 1e-12) - r) - t
     return torch.where(cut, rim, shell)
 
 
@@ -60,7 +68,7 @@ def _tie_half(lhs, rhs):
 
 
 def _grad_box(size, p):
-    q = torch.abs(p) - size
+    q = _abs(p) - size
     qc = torch.clamp(q, min=0.0)
     # out = |clip(q, 0, inf)|: qc / |qc| where q > 0; qc = 0 at the tie q = 0
     g_out = qc / _length(qc)[..., None]
