@@ -13,7 +13,11 @@ envs) through them:
     float64 (on the tiny cloth of the CPU tests and at full width), the
     training env-steps/s and peak memory, and the backward kernel's times.
 Both kernels are also held against the plain step on a cloth of more cells
-than a block has threads, at the grid's corner (``BORDER_HW``). One rollout
+than a block has threads, at the grid's corner (``BORDER_HW``), and on
+fold_tshirt's 72 x 78 cloth (N = 180), whose rollout then runs through
+K1-fwd (``[tshirt]``). ``[k1-design]`` prints what the card makes of each
+K1 kernel (registers, local memory, shared memory, blocks per SM) and its
+times per width, per variant and with the substeps halved. One rollout
 and one update at 1024 envs run under ``torch.profiler``: device busy share
 and device time by kernel.
 
@@ -172,6 +176,22 @@ TINY = dict(N=20, n_substeps=10, gripper_radius=0.08)
 BORDER_HW = (32, 40)
 B_BORDER = 128
 MAX_BLOCK_THREADS = 1024
+# fold_tshirt (N = 180: a 72 x 78 bbox of 5616 cells, 3573 particles,
+# stiffness 5000, dt 0.5e-3, 50 substeps): both kernels, one robot step from
+# perturbed states with both grippers on the shirt, held to the per-env gate
+# above at B_TSHIRT envs; then a deterministic run_eval rollout at
+# B_TSHIRT_ROLL envs (5 macro steps, 200 K1-fwd launches). Over 16 envs the
+# median of the mu cotangent's error swings between draws for kernel and
+# plain VJP alike (on an H100 the kernel's was once 2.04x the float32 plain
+# VJP's, over the gate, and within it in other runs); the gate takes 64.
+B_TSHIRT = 64
+B_TSHIRT_ROLL = 64
+# [k1-design]: each K1 kernel's registers, spills, shared memory and blocks
+# per SM, every built variant's time at fold_cloth3's B_MAIN, and the chosen
+# variant's times at DESIGN_B envs (one and two waves of one block per SM,
+# the main width, the wide one) and with the substeps halved.
+DESIGN_B = (132, 264, 1024, 4096)
+N_SMS = 132
 VJP_NAMES = ("x", "v", "primitive0", "primitive1", "action0", "action1", "stiffness", "mu")
 # Training: fold_cloth3 as the reference README trains it.
 EP_LEN = 3
@@ -529,7 +549,7 @@ def shared_neighbours(sim):
     from unidom_torch.engine.cloth import LINKS
 
     H, W = sim.H, sim.W
-    valid = sim.link_valid.cpu().numpy().reshape(8, H, W) > 0
+    valid = sim.nbr_valid.cpu().numpy().transpose(2, 0, 1) > 0
     i, j = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
     q = [np.clip(i + di, 0, H - 1) * W + np.clip(j + dj, 0, W - 1) for di, dj in LINKS]
     shared = np.zeros((H, W), bool)
@@ -548,6 +568,164 @@ def robot_action(B, device):
     # and x += d * 0.75, so every term of its adjoint is non-zero
     a[:, 4:7], a[:, 7] = 0.1, 0.25
     return a
+
+
+def tshirt_phase(dev, gen):
+    """[tshirt]: both K1 kernels on fold_tshirt's cloth against the float32
+    and float64 plain steps, then its rollout through K1-fwd. Returns the
+    rollout's K1-fwd launches and the largest |kernel - plain| of each kernel."""
+    import torch
+
+    from unidom_torch import make_env
+    from unidom_torch.algorithms.apg import run_eval
+    from unidom_torch.models.mlp import PolicyMLP
+    from unidom_torch.ops.cuda import cloth_kernel
+    from unidom_torch.ops.cuda.cloth_kernel import cloth_robot_step, cloth_robot_step_vjp_plain
+
+    t_phase = time.perf_counter()
+    env = make_env("fold_tshirt", batch_size=B_TSHIRT, device=dev)
+    sim = env.simulator
+    s = perturb(env.reset(torch.Generator().manual_seed(0))[1], gen)
+    px = sim.pack(s.x)  # both grippers on the shirt, not on a bbox corner
+    ps0, ps1 = s.primitive0.clone(), s.primitive1.clone()
+    ps0[:, :3], ps1[:, :3] = px[:, 0], px[:, -1]
+    s = s.replace(primitive0=ps0, primitive1=ps1)
+    action = robot_action(B_TSHIRT, dev)
+    with torch.no_grad():
+        outs = [(o.x, o.v, o.primitive0, o.primitive1) for o in (
+            cloth_robot_step(sim, s, action), sim._robot_step_plain(s, action),
+            plain_sim(sim, torch.float64)._robot_step_plain(cast(s, torch.float64),
+                                                           action.double()))]
+    fwd_err = per_env_gate("tshirt-fwd", VJP_NAMES[:4], *outs)
+    t_in, t_cot = vjp_inputs(sim, s)
+    bwd_err = per_env_gate(
+        "tshirt-bwd", VJP_NAMES, cloth_kernel.cloth_robot_step_vjp(sim, t_in, t_cot),
+        cloth_robot_step_vjp_plain(sim, t_in, t_cot),
+        cloth_robot_step_vjp_plain(plain_sim(sim, torch.float64), [t.double() for t in t_in],
+                                   [t.double() for t in t_cot]))
+    cfgs = {k: cloth_kernel.launch_config(sim.H, sim.W, sim.conf.n_substeps, k)
+            for k in ("fwd", "bwd")}
+    log(f"[tshirt] {sim.H} x {sim.W} = {sim.H * sim.W} bbox cells, {sim.n_particles} particles, "
+        f"B={B_TSHIRT}: both kernels within the gate; K1-fwd "
+        f"{cfgs['fwd'].threads} threads x {cfgs['fwd'].slots} particles "
+        f"({cfgs['fwd'].regs} in registers), {cfgs['fwd'].smem} B of shared memory; K1-bwd "
+        f"{cfgs['bwd'].threads} x {cfgs['bwd'].slots} ({cfgs['bwd'].regs}), "
+        f"{cfgs['bwd'].smem + cfgs['bwd'].static_smem} B; {time.perf_counter() - t_phase:.2f} s")
+    del env, sim, s, outs, t_in, t_cot
+    torch.cuda.empty_cache()
+
+    t_phase = time.perf_counter()
+    env = make_env("fold_tshirt", batch_size=B_TSHIRT_ROLL, device=dev)
+    policy = PolicyMLP(env.observation_size, 2 * env.action_size,
+                       generator=torch.Generator().manual_seed(0), device=dev)
+    _, state0 = env.reset(torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        run_eval(policy, None, env, state0, deterministic=True)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cloth_robot_step.launches = 0
+        cloth_robot_step.bwd_launches = 0
+        t0 = time.perf_counter()
+        final, _, rewards = run_eval(policy, None, env, state0, deterministic=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = (cloth_robot_step.launches, cloth_robot_step.bwd_launches)
+    expected = env.max_steps * 40
+    slack = env.conf.dt * env.conf.max_v + 1e-6
+    lo, hi = final.x.min().item(), final.x.max().item()
+    log(f"[tshirt] run_eval fold_tshirt B={B_TSHIRT_ROLL}, {env.max_steps} macro steps: K1-fwd "
+        f"{launches[0]} launches (expected {expected}), K1-bwd {launches[1]}; "
+        f"{env.max_steps * B_TSHIRT_ROLL / seconds:.2f} env-steps/s ({seconds:.3f} s); peak "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; rewards (env 0) "
+        f"{[round(r, 6) for r in rewards[:, 0].tolist()]}; final x in [{lo:.5f}, {hi:.5f}]; "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    if launches != (expected, 0):
+        fail(f"the fold_tshirt rollout launched K1 {launches} times, expected ({expected}, 0)")
+    if tuple(rewards.shape) != (env.max_steps, B_TSHIRT_ROLL) or not torch.isfinite(rewards).all():
+        fail(f"fold_tshirt rewards of shape {tuple(rewards.shape)} are not all finite")
+    if not (torch.isfinite(final.x).all() and lo >= -slack and hi <= 1.0 + slack):
+        fail(f"fold_tshirt's final x leaves [0, 1] by more than {slack}")
+    del env, policy, state0, final
+    torch.cuda.empty_cache()
+    return launches[0], fwd_err, bwd_err
+
+
+def k1_design_phase(dev, gen):
+    """[k1-design]: what the card makes of each K1 kernel (registers, local
+    memory, shared memory, blocks per SM), every built variant's time at
+    fold_cloth3's main width, and the chosen variant's times per width and
+    with the substeps halved."""
+    import torch
+
+    from unidom_torch import make_env
+    from unidom_torch.engine.cloth import ClothConf
+    from unidom_torch.envs.cloth_tasks import goal_path
+    from unidom_torch.ops.cuda import cloth_kernel
+
+    t_phase = time.perf_counter()
+    device = torch.cuda.current_device()
+
+    def inputs(B, n_substeps=50):
+        conf = ClothConf(task="fold_cloth3", goal_path=goal_path("fold_cloth3"),
+                         n_substeps=n_substeps)
+        env = make_env("fold_cloth3", batch_size=B, conf=conf, device=dev)
+        w_in, w_cot = vjp_inputs(env.simulator, perturbed_state(env, gen))
+        return env.simulator, w_in, w_cot
+
+    def timed(kind, sim, w_in, w_cot, variant=None):
+        if kind == "fwd":
+            return cuda_ms(lambda: cloth_kernel._launch_fwd(sim, w_in, variant), reps=20)
+        return cuda_ms(lambda: cloth_kernel._launch_bwd(sim, w_in, w_cot, variant), reps=5)
+
+    sim, w_in, w_cot = inputs(B_MAIN)
+    chosen = {}
+    for kind in ("fwd", "bwd"):
+        main_cfg = cloth_kernel.launch_config(sim.H, sim.W, sim.conf.n_substeps, kind)
+        chosen[kind] = (main_cfg.threads, main_cfg.regs)
+        for variant in cloth_kernel.VARIANTS:
+            cfg = cloth_kernel.launch_config(sim.H, sim.W, sim.conf.n_substeps, kind, variant)
+            info = cloth_kernel.kernel_info(cfg, device)
+            ms = timed(kind, sim, w_in, w_cot, variant)
+            waves = math.ceil(B_MAIN / (N_SMS * info["blocks_per_sm"]))
+            log(f"[k1-design] K1-{kind} variant {variant}{' (chosen)' if variant == chosen[kind] else ''}"
+                f" on fold_cloth3 ({sim.H} x {sim.W}): {info['registers']} registers, "
+                f"{info['local_bytes']} B local memory per thread, {cfg.smem} B dynamic + "
+                f"{info['static_smem']} B static shared memory "
+                f"({cfg.smem / cfg.hw_padded:.0f} B per cell), {info['blocks_per_sm']} blocks "
+                f"per SM; {ms:.4f} ms at B={B_MAIN} ({waves} waves, {ms / waves:.4f} ms per wave)")
+    for kind in ("fwd", "bwd"):
+        for hw, name in (((72, 78), "fold_tshirt"), (BORDER_HW, "the border cloth")):
+            cfg = cloth_kernel.launch_config(*hw, 50, kind)
+            info = cloth_kernel.kernel_info(cfg, device)
+            log(f"[k1-design] K1-{kind} on {name} ({hw[0]} x {hw[1]}): variant "
+                f"{(cfg.threads, cfg.regs)}, {cfg.slots} particles per thread, "
+                f"{info['registers']} registers, {info['local_bytes']} B local memory, "
+                f"{cfg.smem + cfg.static_smem} B shared memory, {info['blocks_per_sm']} blocks "
+                f"per SM, {cfg.scratch * 4} B of scratch per env")
+    del sim, w_in, w_cot
+    times = {"fwd": {}, "bwd": {}}
+    for B in DESIGN_B:
+        sim, w_in, w_cot = inputs(B)
+        for kind in ("fwd", "bwd"):
+            times[kind][B] = timed(kind, sim, w_in, w_cot)
+        del sim, w_in, w_cot
+        torch.cuda.empty_cache()
+    sim, w_in, w_cot = inputs(B_MAIN, 25)
+    half = {kind: timed(kind, sim, w_in, w_cot) for kind in ("fwd", "bwd")}
+    del sim, w_in, w_cot
+    for kind in ("fwd", "bwd"):
+        cfg = cloth_kernel.launch_config(16, 32, 50, kind)
+        per_sm = cloth_kernel.kernel_info(cfg, device)["blocks_per_sm"]
+        rows = "; ".join(
+            f"B={B} {ms:.4f} ms ({math.ceil(B / (N_SMS * per_sm))} waves)"
+            for B, ms in times[kind].items())
+        full, halved = times[kind][B_MAIN], half[kind]
+        log(f"[k1-design] K1-{kind} {chosen[kind]}: {rows}; at B={B_MAIN} with 25 substeps "
+            f"{halved:.4f} ms: per substep {(full - halved) / 25:.5f} ms, the rest "
+            f"{2 * halved - full:.4f} ms")
+    log(f"[k1-design] {time.perf_counter() - t_phase:.2f} s")
+    torch.cuda.empty_cache()
+    return times
 
 
 def mpm_cast(state, dtype):
@@ -2626,6 +2804,11 @@ def main():
     del bsim, bstate, b_in, b_cot, outs
     torch.cuda.empty_cache()
 
+    # ---- 6c. fold_tshirt through both kernels, and its rollout
+    tshirt_launches, tshirt_fwd_err, tshirt_bwd_err = tshirt_phase(dev, gen)
+    # ---- 6d. the K1 kernels' design: registers, occupancy, time per wave
+    k1_design_phase(dev, gen)
+
     # ---- 7. the main path: APG training of fold_cloth3 through both kernels
     t_phase = time.perf_counter()
     logdir = ROOT / "build" / "chip_smoke_train"
@@ -2759,7 +2942,7 @@ def main():
         wsim = wenv.simulator
         w_in, w_cot = vjp_inputs(wsim, perturbed_state(wenv, gen))
         w_out = cloth_kernel.cloth_robot_step_vjp(wsim, w_in, w_cot)
-        links = (wsim.link_rest, wsim.link_valid)
+        links = (wsim.link_code,)
         cells = B * wsim.H * wsim.W * wsim.conf.n_substeps
         bounds[B] = {
             "fwd": bound(nbytes(w_in) + nbytes(links) + nbytes(w_in[:4]), FLOP_FWD * cells),
@@ -2806,8 +2989,9 @@ def main():
         "replaces": "unidom_tpu/ops/pallas/cloth_kernel.py:331",
         "launches": train_launches["fwd"],
         "launches_by_path": {"run_eval": launches, "train": train_launches["fwd"],
-                             "whip_rope_run_eval": whip_k1["fwd"]},
-        "max_abs_err": errs_all,
+                             "whip_rope_run_eval": whip_k1["fwd"],
+                             "fold_tshirt_run_eval": tshirt_launches},
+        "max_abs_err": max(errs_all, tshirt_fwd_err),
         "ms": times[B_MAIN]["kernel"],
         "plain_ms": times[B_MAIN]["plain"],
         "bound_ms": bounds[B_MAIN]["fwd"][0],
@@ -2821,7 +3005,7 @@ def main():
         "launches": train_launches["bwd"],
         "launches_by_path": {"run_eval": eval_bwd_launches, "train": train_launches["bwd"],
                              "whip_rope_run_eval": whip_k1["bwd"]},
-        "max_abs_err": max(bwd_err, grad_err),
+        "max_abs_err": max(bwd_err, grad_err, tshirt_bwd_err),
         "ms": bwd_times[B_MAIN]["kernel"],
         "plain_ms": bwd_times[B_MAIN]["plain"],
         "bound_ms": bounds[B_MAIN]["bwd"][0],

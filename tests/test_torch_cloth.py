@@ -15,7 +15,9 @@ from unidom_tpu.engine.cloth import ClothConf as JaxClothConf
 from unidom_tpu.engine.cloth import ClothSimulator as JaxClothSimulator
 from unidom_tpu.ops.gradops import normalize_grad as jax_normalize_grad
 from unidom_tpu.ops.pallas.cloth_kernel import build_cloth_robot_step_kernel
-from unidom_torch.engine.cloth import ClothConf, ClothSimulator, ClothState
+from unidom_torch.engine.cloth import LINKS, ClothConf, ClothSimulator, ClothState
+from unidom_torch.envs.cloth_tasks import _rect_mask, _tshirt_mask
+from unidom_torch.ops.cuda import cloth_kernel
 from unidom_torch.ops.cuda.cloth_kernel import (
     _check_cotangents,
     cloth_robot_step,
@@ -282,3 +284,108 @@ def test_normalize_grad_matches_jax(batched):
     np.testing.assert_array_equal(out.detach().numpy(), x)
     out.backward(torch.from_numpy(g))
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-9)
+
+
+# ---- the kernels' launch configuration and link codes (no card needed)
+
+SMEM_PER_BLOCK = 232_448  # an H100 block's shared memory
+TSHIRT_CONF = dict(N=180, stiffness=5000.0, dt=0.5e-3, mu=0.9)
+
+
+def _border_mask():
+    mask = np.zeros((80, 80), np.float32)
+    mask[:32, :40] = 1.0  # the grid's corner: shortened diagonals, shared neighbours
+    return mask
+
+
+@pytest.fixture(scope="module")
+def cloths():
+    """Every cloth the port runs on the card: fold_cloth1/3's 16 x 32, the
+    32 x 40 border cloth of chip_smoke.py and fold_tshirt's 72 x 78."""
+    return {
+        "fold_cloth3": ClothSimulator(ClothConf(), 1, _rect_mask(80, 16), device="cpu"),
+        "border": ClothSimulator(ClothConf(), 1, _border_mask(), device="cpu"),
+        "fold_tshirt": ClothSimulator(ClothConf(**TSHIRT_CONF), 1, _tshirt_mask(180),
+                                      device="cpu"),
+    }
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("cloth", ["fold_cloth3", "border", "fold_tshirt"])
+def test_launch_config_fits_a_block(cloths, cloth, kind):
+    sim = cloths[cloth]
+    hw = sim.H * sim.W
+    cfg = cloth_kernel.launch_config(sim.H, sim.W, sim.conf.n_substeps, kind)
+    assert cfg.smem + cfg.static_smem <= SMEM_PER_BLOCK
+    assert cfg.threads <= 1024 and cfg.threads % 32 == 0
+    assert (cfg.threads, cfg.regs) in cloth_kernel.VARIANTS
+    assert cfg.threads * cfg.slots >= hw > cfg.threads * (cfg.slots - 1)
+    assert cfg.scratch == (max(cfg.slots - cfg.regs, 0) * cloth_kernel.SCRATCH_FLOATS[kind]
+                           * cfg.threads)
+    # shared memory holds x twice (and, backward, the neighbour terms), 12 B
+    # per cell each, plus the backward's gripper states per substep
+    planes = 6 if kind == "fwd" else 9
+    extra = 0 if kind == "fwd" else 32 * sim.conf.n_substeps
+    assert cfg.smem == 4 * planes * cfg.hw_padded + extra
+    if cloth == "fold_cloth3":  # the main path: every particle in registers
+        assert cfg.scratch == 0
+
+
+@pytest.mark.parametrize("kind,side", [("fwd", 100), ("bwd", 80)])
+def test_oversized_cloth_raises_before_launch(monkeypatch, kind, side):
+    """A cloth whose block would exceed shared memory raises in Python,
+    naming its size, before the library is built or loaded: 100 x 100 cells
+    for the forward (240,000 B), 80 x 80 for the backward only."""
+    N = max(side, 80)
+    mask = np.zeros((N, N), np.float32)
+    mask[:side, :side] = 1.0
+    sim = ClothSimulator(ClothConf(N=N), 1, mask, device="cpu")
+    if kind == "bwd":
+        cloth_kernel.launch_config(side, side, sim.conf.n_substeps, "fwd")  # fits
+    monkeypatch.setattr(cloth_kernel, "_lib", lambda: pytest.fail("the library was loaded"))
+    s = sim.reset()
+    a0, a1 = sim.prepare_actions(torch.zeros(1, 8))
+    inputs = (s.x, s.v, s.primitive0, s.primitive1, a0, a1, s.stiffness, s.mu)
+    match = rf"{side} x {side} = {side * side} bbox cells .* bytes .* {kind} kernel .* {SMEM_PER_BLOCK}"
+    with pytest.raises(ValueError, match=match):
+        if kind == "fwd":
+            cloth_kernel._launch_fwd(sim, inputs)
+        else:
+            cloth_kernel._launch_bwd(sim, inputs, [torch.zeros_like(t) for t in inputs[:4]])
+
+
+@pytest.mark.parametrize("hw", [(16, 32), (32, 40), (72, 78), (3, 5), (7, 7)])
+def test_history_stride_is_16_byte_aligned(hw):
+    """The backward's history per substep, and the x slice its bulk copy
+    moves into shared memory, are multiples of 16 bytes."""
+    cfg = cloth_kernel.launch_config(*hw, 50, "bwd")
+    assert cfg.hw_padded % 4 == 0 and cfg.hw_padded >= hw[0] * hw[1]
+    assert (4 * cfg.hist_stride) % 16 == 0
+    assert (12 * cfg.hw_padded) % 16 == 0
+    assert cfg.hist_stride == cloth_kernel.HIST_PLANES * cfg.hw_padded
+
+
+@pytest.mark.parametrize("cloth", ["fold_cloth3", "border", "fold_tshirt"])
+def test_link_code_decodes_to_the_plain_links(cloths, cloth):
+    """Each cell's packed code gives back the plain step's springs: which
+    links are valid, their rest lengths, and their neighbours as the plain
+    step's edge padding finds them."""
+    sim = cloths[cloth]
+    H, W = sim.H, sim.W
+    code = sim.link_code.numpy().view(np.uint32)
+    valid = sim.nbr_valid.numpy().reshape(H * W, 8).T > 0
+    rest = sim.rest_len.numpy().reshape(H * W, 8).T
+    i, j = np.divmod(np.arange(H * W), W)
+    for l, (di, dj) in enumerate(LINKS):
+        nibble = ((code >> (4 * l)) & 15).astype(np.int64)
+        on = nibble != 5
+        np.testing.assert_array_equal(on, valid[l], err_msg=f"link {l}")
+        ei, ej = nibble[on] // 4 - 1, nibble[on] % 4 - 1
+        diag = (ei != 0) & (ej != 0)
+        np.testing.assert_array_equal(np.asarray(sim.rest_lengths, np.float32)[diag.astype(int)],
+                                      rest[l][on], err_msg=f"link {l}")
+        q = (i[on] + ei) * W + j[on] + ej
+        padded = np.clip(i[on] + di, 0, H - 1) * W + np.clip(j[on] + dj, 0, W - 1)
+        np.testing.assert_array_equal(q, padded, err_msg=f"link {l}")
+    if cloth == "border":  # a shortened diagonal at the grid's corner stays a spring
+        assert (((code >> 20) & 15) == 9).any()

@@ -291,7 +291,7 @@ def test_entry_points_default_to_the_card():
     ]
     if torch.cuda.is_available():
         env = defaults[0]()
-        assert env.device.type == "cuda" and env.simulator.link_valid.is_cuda
+        assert env.device.type == "cuda" and env.simulator.link_code.is_cuda
         assert next(defaults[1]().parameters()).is_cuda
         assert defaults[2]().mean.is_cuda and defaults[3]().m2.is_cuda
     else:

@@ -77,6 +77,31 @@ class ClothConf:
 LINKS = np.array([[-1, 0], [1, 0], [0, -1], [0, 1], [-1, -1], [1, -1], [-1, 1], [1, 1]])
 
 
+LINK_NONE = 5  # the nibble of offset (0, 0): no spring
+
+
+def _pack_links(offset, rest, valid, cell_size):
+    """Pack (H, W, 8) links (offset (di, dj) after the global-grid clip, rest
+    length, validity) into an (H*W,) int32 code per cell and the rest lengths
+    (axial, diagonal). Raises unless every spring's rest length is one of the
+    two and its neighbour lies in the bbox, as the kernels assume."""
+    H, W = rest.shape[:2]
+    if not np.isin(valid, (0.0, 1.0)).all():
+        raise ValueError("link validity must be 0 or 1")
+    on = valid > 0
+    diag = (offset[..., 0] != 0) & (offset[..., 1] != 0)
+    lengths = np.float32(cell_size * np.array([1.0, np.sqrt(2.0)]))
+    if not np.array_equal(rest[on], lengths[diag.astype(int)][on]):
+        raise ValueError("a spring's rest length is neither the axial nor the diagonal one")
+    i, j = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    ni, nj = i[..., None] + offset[..., 0], j[..., None] + offset[..., 1]
+    if not ((ni[on] >= 0) & (ni[on] < H) & (nj[on] >= 0) & (nj[on] < W)).all():
+        raise ValueError("a spring's neighbour lies outside the bbox")
+    nibble = np.where(on, (offset[..., 0] + 1) * 4 + offset[..., 1] + 1, LINK_NONE)
+    code = (nibble.astype(np.uint32) << (4 * np.arange(8, dtype=np.uint32))).sum(-1)
+    return code.reshape(-1).astype(np.uint32).view(np.int32), tuple(float(r) for r in lengths)
+
+
 def _edge_pad(x):
     """Edge-pad (B, H, W, C) by one cell on both spatial dims."""
     x = torch.cat([x[:, :1], x, x[:, -1:]], dim=1)
@@ -127,10 +152,13 @@ class ClothSimulator:
         rest = np.clip(rest, 1e-12, np.inf).astype(np.float32)  # (H, W, 8)
         self.rest_len = torch.as_tensor(rest, device=self.device)
         self.nbr_valid = torch.as_tensor(valid, device=self.device)
-        # (8, HW) per-link constants for the kernels: rest and valid
-        HW = self.H * self.W
-        self.link_rest = torch.as_tensor(rest.reshape(HW, 8).T.copy(), device=self.device)
-        self.link_valid = torch.as_tensor(valid.reshape(HW, 8).T.copy(), device=self.device)
+        # The same links packed for the kernels: per cell one int32 with a
+        # nibble per link, the neighbour's offset after the clip
+        # ((di + 1) * 4 + (dj + 1)) or LINK_NONE, and the two rest lengths
+        # (axial, diagonal) that every spring has.
+        code, self.rest_lengths = _pack_links(nbr - cell[:, :, None, :], rest, valid,
+                                              conf.cell_size)
+        self.link_code = torch.as_tensor(code, device=self.device)
         self.damping_factor = float(np.exp(np.float32(-conf.damping * conf.dt)))
 
     # ------------------------------------------------------------------ #

@@ -1,9 +1,10 @@
 """Concrete cloth task environments.
 
 Counterpart of ``unidom_tpu/envs/cloth_tasks.py`` for fold_cloth1 and
-fold_cloth3: a 16x32 rectangle of cloth on an 80-grid, folded onto a
-recorded goal cloud in 3 or 4 macro steps. The goals are read as ``.npy``
-data from ``unidom_tpu/assets/goals/``.
+fold_cloth3 (a 16x32 rectangle of cloth on an 80-grid, folded onto a
+recorded goal cloud in 3 or 4 macro steps) and fold_tshirt (a t-shirt of
+3573 particles on a 180-grid, a 72x78 bbox, 5 macro steps). The goals and
+the t-shirt mask are read as ``.npy`` data from ``unidom_tpu/assets/``.
 """
 
 from pathlib import Path
@@ -44,3 +45,46 @@ class FoldCloth3Env(ClothEnv):
 
     def create_cloth_mask(self, conf):
         return _rect_mask(conf.N, conf.size)
+
+
+def _tshirt_mask(N):
+    """The reference's t-shirt mask at N = 180 (``tshirt_mask.npy``, 3573
+    particles, the recorded goal cloud's row count); for another N a
+    procedural silhouette of the same placement, as ``unidom_tpu`` draws it."""
+    if N == 180:
+        return np.load(ASSET_DIR / "tshirt_mask.npy").astype(np.float32)
+
+    size = N // 2
+    h_size = size // 2
+    m = np.zeros((size, size), dtype=np.float32)
+
+    body_w = int(size * 0.44)
+    body_h = int(size * 0.62)
+    bx0 = (size - body_w) // 2
+    by0 = int(size * 0.22)
+    m[by0 : by0 + body_h, bx0 : bx0 + body_w] = 1.0
+
+    sleeve_h = int(size * 0.2)
+    sleeve_w = int(size * 0.22)
+    m[by0 : by0 + sleeve_h, bx0 - sleeve_w : bx0] = 1.0
+    m[by0 : by0 + sleeve_h, bx0 + body_w : bx0 + body_w + sleeve_w] = 1.0
+
+    neck_w = int(size * 0.12)
+    nx0 = (size - neck_w) // 2
+    m[by0 : by0 + int(size * 0.04), nx0 : nx0 + neck_w] = 0.0
+
+    m = m.T[::-1]  # rotated 90 degrees clockwise
+    mask = np.zeros((N, N), dtype=np.float32)
+    c = N // 2
+    mask[c - h_size : c + h_size, c - h_size : c + h_size] = m
+    return mask
+
+
+class FoldTshirtEnv(ClothEnv):
+    def __init__(self, batch_size, conf=None, aux_reward=False, seed=1, device="cuda"):
+        conf = conf or ClothConf(N=180, stiffness=5000.0, dt=0.5e-3, mu=0.9, task="fold_tshirt",
+                                 goal_path=goal_path("fold_tshirt"), seed=seed)
+        super().__init__(conf, batch_size, max_steps=5, aux_reward=aux_reward, device=device)
+
+    def create_cloth_mask(self, conf):
+        return _tshirt_mask(conf.N)

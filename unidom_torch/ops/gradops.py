@@ -16,8 +16,11 @@ import torch
 
 def clip(x, lo, hi):
     """``jnp.clip`` with JAX's gradient: at a tie with a bound, max/min split
-    the cotangent in half (``torch.clamp`` would pass all of it)."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    the cotangent in half (``torch.clamp`` would pass all of it). The bounds
+    are filled on x's device (``new_tensor`` would copy them from the host,
+    and on the GPU wait for the stream: once per robot step on the cloth
+    path)."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
 
 
 class NormalizeGrad(torch.autograd.Function):
