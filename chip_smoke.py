@@ -71,8 +71,15 @@ collision, K3-fwd with checkpoints, K3-seg and K3-bwd:
   - one shape_rope ``train`` iteration at 64 envs, its resets through
     ``host_reset`` (2 pushes of 30 K2-fwd calls, no K2-bwd);
   - K3-bwd's times at shape_elasto_plastic 16 and pour_soup 8 and 32 envs,
-    K3-seg's, and K2-bwd's under collision on shape_rope, beside the plain
-    VJP and the bounds.
+    K3-seg's, and K2-bwd's, K2-fwd's and K2-seg's under collision on
+    shape_rope at 64 envs, beside the plain VJP and the bounds; a profile
+    of one shape_rope ``train`` iteration.
+``[k2-design]`` and ``[k3-design]`` print what the card makes of the MPM
+backward kernels (registers, local memory, shared memory per CTA, CTAs per
+cluster, blocks per SM) and K2-bwd's times on shape_rope at 16, 64 and 256
+envs (the other cluster sizes at 64) and whip_rope at 1024, K3-bwd's on
+shape_elasto_plastic at 8 and 16; and hold the P2G grid that K3-bwd
+recomputes against the one the checkpointing forward summed.
 The counters show that each path launches its own kernels and no other.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
@@ -2047,6 +2054,7 @@ def big_phases(dev):
 # plus VJP_FLOOR_REL of the median env's norm), on the plain VJPs' envs.
 B_ROPE_PLAIN = 16  # shape_rope's plain VJPs, float32 and float64: ~52 GB at 16 envs
 ROPE_STRIDE = 12  # the stride rule's K for shape_rope at 64 envs (133 substeps)
+ROPE_SEGMENT = 5  # the segment K2-seg alone recomputes there
 B_BOWL_PLAIN = 32
 B_SOUP_GRAD = 4
 SOUP_STRIDE = 5  # the rule's K for pour_soup at 32 envs (25 substeps)
@@ -2418,6 +2426,12 @@ def big_grad_phases(dev):
         fail("the shape_rope iteration left the parameters where they were")
     del ts, history
     torch.cuda.empty_cache()
+    shutil.rmtree(logdir, ignore_errors=True)
+    profile_device(f"train shape_rope B={B_ROPE_TRAIN}, one iteration",
+                   lambda: train("shape_rope", EP_LEN, B_ROPE_TRAIN, max_it=0, eval_freq=1,
+                                 num_eval_envs=ROPE_EVAL_ENVS, logdir=str(logdir),
+                                 device="cuda"), top=8)
+    torch.cuda.empty_cache()
 
     # ---- 31. K3-bwd, K3-seg and K2-bwd (collision) times beside their bounds
     t_phase = time.perf_counter()
@@ -2496,12 +2510,28 @@ def big_grad_phases(dev):
                                                    rcot), reps=5)
         cells, bottom = mpm_work(rsim, rs.x, rout.x)
         rb = mpm_bwd_bound(rsim, B_SHAPE_ROPE, ROPE_STRIDE, cells, bottom, bwd_cell_flops(rsim))
+        # K2-fwd (no history) and the standalone K2-seg at the same width
+        rope_fwd_ms = cuda_ms(lambda: mk.launch(rsim, prepared), reps=5)
+        fb = mpm_bound(rsim, prepared, rout, big_cell_flops(rsim))
+        rope_seg_ms = cuda_ms(lambda: mk.mpm_step_seg(rsim, prepared, rhist, ROPE_STRIDE,
+                                                      ROPE_SEGMENT), reps=5)
+        L = min(ROPE_STRIDE, rsim.conf.steps - ROPE_SEGMENT * ROPE_STRIDE)
+        seg_flops = (L - 1) * (FLOP_MPM_PARTICLE * B_SHAPE_ROPE * rsim.n_particles
+                               + big_cell_flops(rsim) * cells + FLOP_MPM_FRICTION * bottom)
+        sb = bound(nbytes([rhist[:, 0]]) * (1 + L) + nbytes([frame, vw]), seg_flops)
     log(f"[big-bwd-time] K2-bwd under collision (K = {ROPE_STRIDE}, with its "
         f"{math.ceil(rsim.conf.steps / ROPE_STRIDE)} K2-seg phases), one shape_rope call, "
         f"B={B_SHAPE_ROPE}: {rope_bwd_ms:.4f} ms; bound {rb[0][0]:.4f} ms ({rb[0][1]}: "
         f"{bwd_cell_flops(rsim)} operations per touched cell, {cells / B_SHAPE_ROPE:.1f} touched "
         f"cells per env and substep); K2-bwd at {100 * rb[0][0] / rope_bwd_ms:.2f}% of it; phase "
         f"31 in {time.perf_counter() - t_phase:.2f} s")
+    log(f"[big-bwd-time] K2-fwd under collision (no history), one shape_rope call, "
+        f"B={B_SHAPE_ROPE}: {rope_fwd_ms:.4f} ms; bound {fb[0][0]:.4f} ms ({fb[0][1]}: "
+        f"{big_cell_flops(rsim)} operations per touched cell, {fb[3]:.1f} touched cells per env "
+        f"and substep, {fb[1] / 1e9:.3f} GFLOP, {fb[2] / 1e6:.2f} MB); K2-fwd at "
+        f"{100 * fb[0][0] / rope_fwd_ms:.2f}% of it")
+    log(f"[big-bwd-time] K2-seg alone, segment {ROPE_SEGMENT} ({L} carries) of one shape_rope "
+        f"call at B={B_SHAPE_ROPE}: {rope_seg_ms:.4f} ms; bound {sb[0]:.4f} ms ({sb[1]})")
     del rsim, rs, ra, prepared, fields, frame, vw, rout, rhist, rcot
     torch.cuda.empty_cache()
 
@@ -2535,6 +2565,159 @@ def big_grad_phases(dev):
         "library_ms": None,
     }
     return seg_entry, bwd_entry, rope_counts["K2-bwd"], collide_err
+
+
+# ---- [k2-design] and [k3-design]: what the card makes of the MPM backward
+# kernels (registers, local memory, shared memory, CTAs per cluster, blocks
+# per SM) and their times per width; K3's recomputed P2G grid against the
+# checkpointing forward's.
+K2_DESIGN_B = (16, 64, 256)  # shape_rope envs
+K2_DESIGN_CLUSTERS = (1, 2, 4)  # the variants timed at shape_rope's 64 envs
+K3_DESIGN_B = (8, 16)  # shape_elasto_plastic envs
+# The recomputed grid must equal the forward's within float32 rounding of
+# its values: each of its double sums within half a float32 spacing
+# (2^-24 relative) of the forward's, or, where terms cancel to near 0,
+# within GRID_FLOOR of the largest value (double sums of ~340 terms in
+# another order differ by ~1e-14 of the terms).
+GRID_REL = 2.0**-24
+GRID_FLOOR = 1e-12
+
+
+def k2_bwd_inputs(sim, s, a, K):
+    """(fields, frame, vw, history at stride K, output cotangents) of one
+    K2-bwd call from state ``s`` under action ``a`` (one primitive)."""
+    import torch
+
+    from unidom_torch.ops.cuda import mpm_kernel as mk
+
+    with torch.no_grad():
+        prepared = sim.prepare(s, a)
+        fields, frame, vw = mk._inputs(sim, prepared)
+        out, hist = mk.launch(sim, prepared, K)
+        cot = [c.contiguous() for c in mpm_vjp_cot(out)]
+        cot[5], cot[6] = (torch.stack([t], 1).contiguous() for t in cot[5:])
+    return fields, frame, vw, hist, cot
+
+
+def k2_design_phase(dev):
+    """[k2-design]: K2-bwd's launch as launch_config picks it on shape_rope
+    at K2_DESIGN_B envs and whip_rope at 1024 (and the other cluster sizes
+    at shape_rope's 64): registers, local memory, shared memory per CTA,
+    CTAs per cluster, CTAs per SM, clusters resident, and ms per call."""
+    import torch
+
+    from unidom_torch import make_env
+    from unidom_torch.ops.cuda import mpm_kernel as mk
+
+    t_phase = time.perf_counter()
+    device = torch.cuda.current_device()
+
+    def timed(name, B, sim, s, a, cluster=None):
+        conf = sim.conf
+        cfg = mk.launch_config(B, sim.n_particles, conf.res[0] * conf.res[1] * conf.res[2],
+                               conf.steps, len(sim.sdf_names), cluster)
+        info = mk.bwd_kernel_info(cfg, device)
+        fields, frame, vw, hist, cot = k2_bwd_inputs(sim, s, a, cfg.K)
+        ms = cuda_ms(lambda: mk._backward(sim, fields, frame, vw, hist, cfg.K, cot, cluster),
+                     reps=3, warmup=1)
+        waves = math.ceil(B * cfg.cluster / (N_SMS * max(info["blocks_per_sm"], 1)))
+        log(f"[k2-design] K2-bwd {name} B={B}, K = {cfg.K}, cluster of {cfg.cluster}"
+            f"{' (chosen)' if cluster is None else ''}: {cfg.threads} threads and "
+            f"{cfg.per_cta} particles per CTA, {info['registers']} registers, "
+            f"{info['local_bytes']} B local memory per thread, {cfg.smem} B dynamic + "
+            f"{info['static_smem']} B static shared memory per CTA, {info['blocks_per_sm']} CTAs "
+            f"per SM, {info['clusters']} clusters resident; {ms:.4f} ms ({waves} waves)")
+        del fields, frame, vw, hist, cot
+        torch.cuda.empty_cache()
+        return ms
+
+    times = {}
+    for B in K2_DESIGN_B:
+        sim, s, a = mpm_config_sim("shape_rope", B, dev)
+        times[B] = timed("shape_rope", B, sim, s, a)
+        if B == B_SHAPE_ROPE:
+            chosen = mk.launch_config(B, sim.n_particles, math.prod(sim.conf.res),
+                                      sim.conf.steps, 1).cluster
+            for cl in K2_DESIGN_CLUSTERS:
+                if cl != chosen:
+                    timed("shape_rope", B, sim, s, a, cl)
+        del sim, s, a
+    env = make_env("whip_rope", batch_size=B_MAIN, device=dev)
+    s = whip_rope_parity_state(env, dev)
+    a = torch.tensor(MPM_ACTION, device=dev).expand(B_MAIN, 6).contiguous()
+    times["whip_rope"] = timed("whip_rope", B_MAIN, env.simulator, s, a)
+    del env, s, a
+    torch.cuda.empty_cache()
+    log(f"[k2-design] {time.perf_counter() - t_phase:.2f} s")
+    return times
+
+
+def k3_design_phase(dev):
+    """[k3-design]: each K3 kernel's registers, local memory, shared memory
+    and blocks per SM; K3-bwd's ms per shape_elasto_plastic call at
+    K3_DESIGN_B envs; and the recomputed-grid check: the gradient's P2G of
+    the last substep's carry, recomputed as K3-bwd recomputes it, against
+    the grid the checkpointing forward summed (shape_elasto_plastic at 16
+    envs)."""
+    import torch
+
+    from unidom_torch import make_env
+    from unidom_torch.ops.cuda import mpm_big_kernel as mbk
+    from unidom_torch.ops.cuda import mpm_kernel as mk
+
+    t_phase = time.perf_counter()
+    device = torch.cuda.current_device()
+    for i, name in enumerate(mbk.KERNELS):
+        info = mbk.kernel_info(i, device)
+        log(f"[k3-design] K3 {name}: {info['threads']} threads per block, {info['registers']} "
+            f"registers, {info['local_bytes']} B local memory per thread, {info['static_smem']} B "
+            f"static shared memory, 1 CTA per cluster, {info['blocks_per_sm']} blocks per SM")
+    times = {}
+    for B in K3_DESIGN_B:
+        env = make_env("shape_elasto_plastic", batch_size=B, device=dev)
+        sim = env.simulator
+        ws, wa = big_parity_inputs(env, dev)
+        K = mk.checkpoint_stride(B, sim.n_particles, sim.conf.steps)
+        with torch.no_grad():
+            prepared = sim.prepare(ws, wa)
+            fields, frame, vw = mbk._big_inputs(sim, prepared, K)
+            out, hist = mbk.launch_big(sim, prepared, K)
+            cot = mpm_vjp_cot(out)
+            cot = [c.contiguous() for c in cot[:5]] + [
+                torch.stack(cot[5::2], 1).contiguous(), torch.stack(cot[6::2], 1).contiguous()]
+            times[B] = cuda_ms(lambda: mbk._backward(sim, fields, frame, vw, hist, K, cot),
+                               reps=3, warmup=1)
+            fwd_ms = cuda_ms(lambda: mbk.launch_big(sim, prepared, K), reps=3, warmup=1)
+            log(f"[k3-design] shape_elasto_plastic B={B}, K = {K}: K3-bwd {times[B]:.4f} ms per "
+                f"call; K3-fwd with its checkpoints (P2G in bin order, double sums) "
+                f"{fwd_ms:.4f} ms per call")
+            del out, hist, cot
+            if B == B_ELASTO:
+                cells = math.prod(sim.conf.res)
+                gacc = torch.zeros((B, cells, 4), dtype=torch.float64, device=dev)
+                mark = torch.zeros((B, cells), dtype=torch.int32, device=dev)
+                _, hist = mbk.launch_big(sim, prepared, 1, gacc=gacc, mark=mark)
+                last = sim.conf.steps - 1
+                re_gacc, re_mark = mbk.p2g_sums(sim, prepared, hist, 1, last)
+                on = re_mark.bool()
+                diff = (gacc[on] - re_gacc[on]).abs()
+                scale = re_gacc[on].abs()
+                limit = GRID_REL * scale + GRID_FLOOR * scale.max()
+                n_float = int((gacc[on].float() != re_gacc[on].float()).sum())
+                log(f"[k3-design] recomputed grid: the gradient's P2G of substep {last}'s carry "
+                    f"recomputed as K3-bwd does, against the checkpointing forward's, B={B}, "
+                    f"{int(on.sum())} touched cells: max abs difference {diff.max().item():.3e} "
+                    f"(values up to {scale.max().item():.3e}; gate {GRID_REL:.3e} of each value "
+                    f"+ {GRID_FLOOR:g} of the largest, exceeded {int((diff > limit).sum())} "
+                    f"times); {n_float} of {diff.numel()} sums round to another float32; the "
+                    f"forward marked every recomputed cell: {bool((mark.bool() | ~on).all())}")
+                if not (diff <= limit).all() or not bool((mark.bool() | ~on).all()):
+                    fail("K3's recomputed P2G grid is not the checkpointing forward's")
+                del gacc, mark, hist, re_gacc, re_mark
+        del env, sim, ws, wa, prepared, fields, frame, vw
+        torch.cuda.empty_cache()
+    log(f"[k3-design] {time.perf_counter() - t_phase:.2f} s")
+    return times
 
 
 def main():
@@ -2606,6 +2789,9 @@ def main():
     bwd_entry["launches_by_path"]["shape_rope_train"] = rope_k2_bwd
     bwd_entry["max_abs_err"] = max(bwd_entry["max_abs_err"], collide_err)
     torch.cuda.empty_cache()
+    # ---- the MPM backward kernels' design (see k2_design_phase, k3_design_phase)
+    k2_design_phase(dev)
+    k3_design_phase(dev)
 
     t_phase = time.perf_counter()
     with torch.no_grad():

@@ -1,0 +1,243 @@
+"""Rehearse the MPM kernels of ``unidom_torch/csrc`` on the CPU, without a GPU.
+
+Builds ``mpm_step.cu`` (K2) and ``mpm_big_step.cu`` (K3) for the host with g++
+under the stand-in CUDA runtime beside this file (every CUDA thread a
+``std::thread``, clusters, warp shuffles and distributed shared memory
+emulated), optionally with every ``float`` a ``double``, loads them through
+copies of the wrappers (``ops/cuda/mpm_kernel.py`` and ``mpm_big_kernel.py``)
+and holds the kernels' VJPs of one macro step against autograd of the plain
+step in the same precision, on every input cotangent. In float64 the
+kernels must agree with the plain step to rounding (~1e-12 relative), which
+the card's float32 gates cannot show.
+
+    python scripts/host_cuda/rehearse.py --f64 --out /tmp/rehearse k2 k3
+
+Run it under ``timeout``: a barrier or shuffle that not every thread reaches
+hangs the host build. It runs small configurations (a few substeps, one or
+two envs); shape_elasto_plastic's 23,940 particles take minutes per macro
+step here.
+"""
+
+import argparse
+import ctypes
+import dataclasses
+import re
+import subprocess
+import sys
+import time
+import types
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[2]
+HERE = Path(__file__).resolve().parent
+CSRC = ROOT / "unidom_torch" / "csrc"
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402  (its MPM helpers: configs, VJPs, cotangents)
+
+F64_PRELUDE = """#define float double
+#define sqrtf sqrt
+#define fabsf fabs
+#define expf exp
+#define logf log
+#define sinf sin
+#define cosf cos
+#define floorf floor
+#define fminf fmin
+#define fmaxf fmax
+"""
+
+
+def _rewrite(text, name, f64):
+    """The source as the host stub takes it: __shared__ declarations as slots
+    of the block's arena, kernel launches as calls, and in float64 the float
+    literals without their suffix."""
+    count = [0]
+
+    def shared(m):
+        count[0] += 1
+        dims = m.group(3) or ""
+        return (f"auto& {m.group(2)} = host_cuda::shared_slot<{m.group(1)}{dims}>("
+                f"(const void*)\"{name}:{count[0]}\");")
+
+    text = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+                  r"\1* \2 = host_cuda::dynamic_smem<\1>();", text)
+    text = re.sub(r"__shared__ ([\w:]+) (\w+)(\[[^\]]+\])?;", shared, text)
+    text = re.sub(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\(", r"host_launch(\1, \2, ", text)
+    if f64:
+        text = re.sub(r"(?<![\w.])(\d[\d.]*(?:[eE][-+]?\d+)?)f\b", r"\1", text)
+    return text
+
+
+def build(source, out_dir, f64):
+    """Build csrc/<source> for the host; returns the library's path."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for name in (source, "mpm_device.cuh"):
+        text = _rewrite((CSRC / name).read_text(), name, f64)
+        if name == source:
+            text = ('#include "cuda_runtime.h"\n#include <cooperative_groups.h>\n'
+                    + (F64_PRELUDE if f64 else "") + text)
+        (out_dir / (name.replace(".cu", ".cpp") if name.endswith(".cu") else name)).write_text(text)
+    lib = out_dir / f"{Path(source).stem}{'_f64' if f64 else ''}.so"
+    cmd = ["g++", "-O2", "-std=c++20", "-pthread", "-shared", "-fPIC", "-w",
+           f"-DHOST_CUDA_REAL={'double' if f64 else 'float'}", "-I", str(out_dir), "-I", str(HERE),
+           "-o", str(lib), str(out_dir / source.replace(".cu", ".cpp"))]
+    subprocess.run(cmd, check=True)
+    return lib
+
+
+def wrappers(libs, f64):
+    """Copies of mpm_kernel.py and mpm_big_kernel.py that load the host
+    libraries, take CPU tensors and, in float64, float64 tensors and C
+    doubles. Returns (mk, mbk)."""
+    mods = {}
+    for name, source in (("mpm_kernel", "mpm_step.cu"), ("mpm_big_kernel", "mpm_big_step.cu")):
+        text = (ROOT / "unidom_torch" / "ops" / "cuda" / f"{name}.py").read_text()
+        if f64:
+            # doubles take twice a float's shared memory, which the host has
+            text = text.replace("torch.float32", "torch.float64").replace(
+                "ctypes.c_float", "ctypes.c_double").replace("4 * floats", "8 * floats").replace(
+                "SMEM_PER_BLOCK = 232_448", "SMEM_PER_BLOCK = 2 * 232_448")
+        mod = types.ModuleType(f"unidom_torch.ops.cuda.{name}")
+        mod.__file__ = str(ROOT / "unidom_torch" / "ops" / "cuda" / f"{name}.py")
+        sys.modules[mod.__name__] = mod
+        exec(compile(text, mod.__file__, "exec"), mod.__dict__)
+        mod.load_library = lambda _src, path=libs[source]: ctypes.CDLL(str(path))
+        mod._lib.cache_clear()
+        mod._device_and_stream = lambda dev: (0, None)
+        mods[name] = mod
+    mods["mpm_big_kernel"]._device_and_stream = lambda dev: (0, None)
+    return mods["mpm_kernel"], mods["mpm_big_kernel"]
+
+
+def _as(sim, dtype):
+    """Shallow copy of ``sim`` whose per-particle hardness is ``dtype``."""
+    import copy
+
+    out = copy.copy(sim)
+    out._h = sim._h.to(dtype)
+    return out
+
+
+def compare(what, kernel, plain, names):
+    """Relative error norm of each input cotangent; returns the largest."""
+    worst = 0.0
+    parts = []
+    for n, k, p in zip(names, kernel, plain):
+        ref = p.double().norm().item()
+        err = (k.double() - p.double()).norm().item()
+        rel = err / ref if ref > 0 else err
+        worst = max(worst, rel)
+        parts.append(f"{n} {rel:.1e}")
+    print(f"[{what}] kernel vs autograd of the plain step, relative error per cotangent: "
+          + ", ".join(parts), flush=True)
+    return worst
+
+
+def rehearse_k2(mk, dtype, steps, clusters):
+    """K2-bwd (under autograd of K2-fwd) on shape_rope cut to ``steps``
+    substeps at each cluster size, K = 1 and K = 2, a bowl and position
+    control."""
+    worst = 0.0
+    cases = [("shape_rope", False), ("bowl_water", False), ("plastic", True), ("von_mises", True)]
+    for name, pc in cases:
+        sim, s, a = cs.mpm_config_sim(name, 2, torch.device("cpu"), position_control=pc)
+        sim.conf = dataclasses.replace(sim.conf, steps=steps)
+        for p in s.primitives:  # the per-substep v and w of the cut macro step
+            p.v, p.w = p.v[:, :steps].contiguous(), p.w[:, :steps].contiguous()
+            p.position = p.position[:, :steps + 1].contiguous()
+            p.rotation = p.rotation[:, :steps + 1].contiguous()
+        s, a = cs.mpm_cast(s, dtype), a.to(dtype)
+        ksim = _as(sim, dtype)
+        cot = [c.to(dtype) for c in cs.mpm_vjp_cot(s)]
+        names = cs.mpm_vjp_names(len(sim.sdf_names))
+        plain = cs.mpm_vjp(sim._step_plain, s, a, cot)
+        for cl in (clusters if name == "shape_rope" else (None,)):
+            launch_config = mk.launch_config
+            mk.launch_config = (lambda *args, cl=cl, **kw:
+                                launch_config(*args[:5], cluster=cl))
+            for K in (1, 2):
+                t0 = time.perf_counter()
+                k = cs.mpm_vjp(lambda s_, a_: mk.kernel_step(ksim, ksim.prepare(s_, a_), K),
+                               s, a, cot)
+                worst = max(worst, compare(
+                    f"K2 {name} cluster {cl or 'rule'} K={K}, {time.perf_counter() - t0:.1f} s",
+                    k, plain, names))
+            mk.launch_config = launch_config
+    return worst
+
+
+def rehearse_k3(mbk, dtype):
+    """K3-bwd (under autograd of K3-fwd with checkpoints) on
+    tests/test_torch_mpm_big.py's configs (4 substeps) at K = 1 and 2; and
+    the recomputed P2G grid against the forward's."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_mpm_big import CONFIGS
+
+    from unidom_torch.engine.mpm import MPMConf, MPMSimulator
+    from unidom_torch.engine.primitives import create_primitive
+
+    worst = 0.0
+    rng = np.random.default_rng(6)
+    for name, (kwargs, scene, pc) in CONFIGS.items():
+        steps = kwargs["steps"]
+        sim = MPMSimulator(MPMConf(**kwargs, task="t"), 1,
+                           use_position_control=pc, device="cpu")
+        s = sim.reset(scene(sim, lambda *a, **k: create_primitive(*a, **k, device="cpu")))
+        s = s.replace(v=torch.from_numpy(0.2 * rng.standard_normal(s.v.shape)).float(),
+                      C=torch.from_numpy(0.5 * rng.standard_normal(s.C.shape)).float())
+        n_prim = len(s.primitives)
+        a = np.zeros((1, 6 * n_prim), np.float32)
+        a[:, :6] = [0.3, 0.0, 0.1, 0.0, 0.0, 0.05]
+        s, a = cs.mpm_cast(s, dtype), torch.from_numpy(a).to(dtype)
+        ksim = _as(sim, dtype)
+        cot = [c.to(dtype) for c in cs.mpm_vjp_cot(s)]
+        names = cs.mpm_vjp_names(n_prim)
+        plain = cs.mpm_vjp(sim._step_plain, s, a, cot)
+        for K in (1, 2):
+            t0 = time.perf_counter()
+            k = cs.mpm_vjp(lambda s_, a_: mbk.kernel_step_big(ksim, ksim.prepare(s_, a_), K),
+                           s, a, cot)
+            worst = max(worst, compare(f"K3 {name} P={sim.n_particles} K={K}, "
+                                       f"{time.perf_counter() - t0:.1f} s", k, plain, names))
+        with torch.no_grad():
+            prepared = ksim.prepare(s, a)
+            gacc = torch.zeros((1, int(np.prod(sim.conf.res)), 4), dtype=torch.float64)
+            mark = torch.zeros((1, int(np.prod(sim.conf.res))), dtype=torch.int32)
+            _, hist = mbk.launch_big(ksim, prepared, 1, gacc=gacc, mark=mark)
+            re_gacc, re_mark = mbk.p2g_sums(ksim, prepared, hist, 1, steps - 1)
+            on = re_mark.bool()
+            diff = (gacc[on] - re_gacc[on]).abs().max().item()
+            print(f"[K3 {name}] the recomputed P2G grid of substep {steps - 1} against the "
+                  f"forward's, over its {int(on.sum())} touched cells: max abs difference "
+                  f"{diff:.3e} (max |value| {re_gacc[on].abs().max().item():.3e}); the touched "
+                  f"cells the same: {bool(torch.equal(mark.bool() & on, on))}", flush=True)
+    return worst
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("what", nargs="+", choices=("k2", "k3"))
+    ap.add_argument("--f64", action="store_true", help="every float a double")
+    ap.add_argument("--out", type=Path, default=ROOT / "build" / "host_cuda")
+    ap.add_argument("--steps", type=int, default=4, help="substeps of K2's cut macro step")
+    ap.add_argument("--clusters", type=int, nargs="+", default=[1, 2, 8],
+                    help="K2-bwd's cluster sizes on shape_rope")
+    args = ap.parse_args()
+    torch.set_num_threads(4)
+    libs = {src: build(src, args.out, args.f64) for src in ("mpm_step.cu", "mpm_big_step.cu")}
+    mk, mbk = wrappers(libs, args.f64)
+    dtype = torch.float64 if args.f64 else torch.float32
+    worst = 0.0
+    if "k2" in args.what:
+        worst = max(worst, rehearse_k2(mk, dtype, args.steps, args.clusters))
+    if "k3" in args.what:
+        worst = max(worst, rehearse_k3(mbk, dtype))
+    print(f"largest relative error: {worst:.3e}")
+
+
+if __name__ == "__main__":
+    main()

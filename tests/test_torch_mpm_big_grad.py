@@ -7,7 +7,8 @@ elastic bar under two bowls (collision), a sigma-clip bar under a box
 (collision) and an elastic one under position control. Every input
 cotangent: the particle state, the Lame parameters, the yield stress, the
 ground friction, every primitive's frame, size, friction and softness, and
-the action. Also K3's checkpoint stride rule at the sizes the card runs.
+the action. Also a grazing push in float64 against the XLA oracle's, and
+K3's checkpoint stride rule at the sizes the card runs.
 Inputs are made with numpy from a seed and fed to both sides."""
 
 import jax
@@ -19,7 +20,7 @@ from test_torch_mpm_big import CONFIGS
 
 from unidom_tpu.engine import mpm as jmpm
 from unidom_tpu.engine import primitives as jprim
-from unidom_torch.engine.mpm import MPMConf, MPMSimulator
+from unidom_torch.engine.mpm import PLASTIC_CLIP, MPMConf, MPMSimulator
 from unidom_torch.engine.primitives import create_primitive
 from unidom_torch.envs.mpm_tasks import PourSoupConf, ShapeElastoPlasticConf
 from unidom_torch.ops.cuda.mpm_big_kernel import check_supported_big, mpm_big_step, scratch_bytes
@@ -224,3 +225,54 @@ def test_k3_gradient_memory_check():
     assert history == 153_216_000
     assert grad - fwd > history
     check_supported_big(sim, 16, ckpt_stride=4)
+
+
+# ---------------------------------------------------------------- a grazing push in float64
+
+# A sigma-clip bar and a box beside it (softness 666, so the contact is
+# felt through exp(-666 d)), on a grid whose spacing 1/48 float32 rounds:
+# the smallest scene whose push shows what shape_elasto_plastic's grazing
+# push (PERF.md, scripts/grazing_push_f64.py at full size) showed.
+GRAZE = dict(n_grid=48, dt=2e-4, steps=2, E=2e3, nu=0.3, res=(16, 12, 16), ground_friction=0.5)
+GRAZE_PUSH = (0.0, 0.0, 0.3, 0.0, 0.0, 0.0)
+# unidom_tpu's float64 step computes the grid nodes' positions in float32
+# (grid_idx_3d.astype(float32) * dx); the port's plain step does the same,
+# and then its float64 VJP is JAX's to ~1e-11 on the primitive's and the
+# action's cotangents (the state's keep F64_REL's SVD amplification near
+# F = I). With the positions in float64 the push's cotangents moved by ~1e-6.
+GRAZE_REL = 1e-9
+
+
+def _graze_scene(sim, make_primitive):
+    state = sim.add_box(None, size=[0.1, 0.04, 0.04], init_pos=[0.167, 0.07, 0.167],
+                        material=PLASTIC_CLIP, density=1.5)
+    state.primitives.append(make_primitive(GRAZE["steps"], friction=0.2, softness=666.0,
+                                           color=[0.5] * 3, size=[0.02, 0.02, 0.02],
+                                           init_pos=[0.167, 0.07, 0.12]))
+    sim.register_primitive_sdf("box")
+    return state
+
+
+def test_grazing_push_vjp_matches_jax_in_float64():
+    rng = np.random.default_rng(0)
+    with jax.enable_x64(True):
+        xsim = jmpm.MPMSimulator(jmpm.MPMConf(**GRAZE, backend="xla", task="t", goal_path=""),
+                                 batch_size=1, use_position_control=False)
+        s0 = xsim.reset(_graze_scene(xsim, jprim.create_primitive))
+        shapes = [s0.x.shape, s0.v.shape, s0.C.shape, s0.F.shape, s0.J.shape]
+        shapes += [q.shape for p in s0.primitives for q in (p.position, p.rotation)]
+        cot = [1e-3 * rng.standard_normal(s) for s in shapes]
+        action = np.asarray([GRAZE_PUSH], np.float64)
+        ref = _jax_vjp(xsim, _f64(s0), action, cot)
+    sim = MPMSimulator(MPMConf(**GRAZE, task="t"), 1, device="cpu")
+    sim.reset(_graze_scene(sim, lambda *a, **k: create_primitive(*a, **k, device="cpu")))
+    state = _cast(mpm_state_from_jax(jax.device_get(s0), device="cpu"), torch.float64)
+    names = _names(1)
+    pushed = [n for n in names if n.startswith("primitive") or n == "action"]
+    port = _torch_vjp(sim, state, torch.from_numpy(action), cot)
+    for name, p64, r in zip(names, port, ref):
+        if not np.abs(r).max() > 0:
+            assert np.abs(p64).max() == 0, name
+            continue
+        assert _rel(p64, r) <= (GRAZE_REL if name in pushed else F64_REL), (name, _rel(p64, r))
+    assert np.abs(ref[names.index("action")][:, :3]).min() > 0  # the push reaches the bar

@@ -25,88 +25,113 @@
 // P2G grid and its touched list, runs the grid ops into the post-op grid
 // keeping each cell's momentum and mass, then takes the adjoints of G2P (a
 // gather of the post-op grid; the nodes' cotangents scatter into the grid
-// cotangent by double atomics), of the grid ops per touched cell (with
+// cotangent's double sums), of the grid ops per touched cell (with
 // collide's adjoint), of P2G (a gather from the grid cotangent) and the
 // stress, return maps, SVD and F update, and of the primitives' forward
-// kinematics (one thread per env): the per-particle and per-cell bodies of
-// mpm_device.cuh that K2-bwd runs.
+// kinematics: the per-particle and per-cell bodies of mpm_device.cuh that
+// K2-bwd runs.
 //
 // What bounds it on this card: operations, as K2-fwd (3,397 float32
 // operations per particle-substep and ~78 per touched cell): pour_soup at 32
 // envs is 20.9 GFLOP per macro step against ~50 MB of state in and out, so
 // ~0.31 ms at 67 TFLOP/s. K3-bwd: 10,071 operations per particle-substep
 // (the forward once and its adjoint, as K2-bwd) and the touched cells' grid
-// ops and their adjoint. This first design is far from either bound: every
-// phase reads and writes the particle state in device memory, P2G and
-// G2P's adjoint add with atomics in device memory (in double when a
-// gradient is wanted, below), and each substep is four launches forward,
-// seven backward. A rollout sums P2G in float: the double sums made K3-fwd
-// 30-45% slower (H100, chip_smoke.py's [big-time]).
+// ops and their adjoint. Every phase reads and writes the particle state in
+// device memory and the scatters add with atomics in device memory; with a
+// gradient the sums are doubles, whose atomics on a crowded cell
+// (shape_elasto_plastic: ~340 particle shares per touched cell and
+// substep) serialise in L2, so the gradient's P2G first sums over the
+// particles of a bin (below).
 //
-// Design (right and simple first):
+// Design:
 //   - Many blocks per env: the particle phases run on a grid of
 //     (ceil(P / 256), B) blocks, one thread per particle. The particle state
 //     lives in device memory, component-major per env (B, 25, P), so that a
 //     warp's loads of one component coalesce; a pack launch copies the
 //     inputs in (and computes the primitives' frames), an unpack launch
 //     copies the outputs and the trajectory rows out.
-//   - Four launches per substep; a launch boundary is the only barrier
-//     between the blocks of an env:
+//   - A rollout (no gradient): four launches per substep; a launch boundary
+//     is the only barrier between the blocks of an env:
 //       1. zero the grid and marks under every particle's stencil (and the
 //          env's touched-cell count);
-//       2. F update, SVD, return map and stress, then P2G by atomicAdd into
-//          the env's sums of momentum and mass in device memory (the float4
-//          grid itself in a rollout; doubles when a gradient is wanted,
-//          below); the first mark of a node appends it to the env's touched
-//          list, by an atomic on the env's count in device memory;
+//       2. F update, SVD, return map and stress, then P2G by float
+//          atomicAdd into the float4 grid; the first mark of a node appends
+//          it to the env's touched list, by an atomic on the env's count;
 //       3. the grid ops, one thread per touched cell (a grid-stride loop over
 //          the env's list; each block loads the substep's primitives into
-//          shared memory), from the sums (rounded to float) into the float4
-//          grid of velocities (and mass) that G2P reads;
+//          shared memory), from the sums into the float4 grid of velocities
+//          (and mass) that G2P reads;
 //       4. G2P, advection and J.
 //     Launches rather than one cooperative kernel: pour_soup at 32 envs is
 //     992 blocks, more than the card may hold resident for a grid-wide
 //     barrier at this register count.
-//   - No sort and no window. The Pallas kernel sorts particles by cell each
-//     macro step only so that its x/y windows cover each 128-particle chunk,
-//     and drops support outside a window; a scatter needs neither. Nodes
-//     outside the grid are dropped as the plain step drops them, and nothing
-//     else is. Outputs stay in the particles' order.
+//   - With a gradient (K3-fwd with checkpoints, K3-seg, K3-bwd's recompute:
+//     one code path), P2G sums in double, so that its result does not
+//     depend on the order of the sums at float32's precision: K3-bwd
+//     recomputes each substep's grid from the saved carry and so takes the
+//     adjoint at the grid the forward used (with float sums in another
+//     order, shape_elasto_plastic's primitive cotangents, sums of
+//     1/dt-amplified terms that cancel, landed 2.3x further from float64
+//     than the float32 plain step's; H100, chip_smoke.py's
+//     [big-bwd-parity]). The particles are sorted by bin, the base node of
+//     their stencil (bin_key), each substep: zeroing the grid under a
+//     particle's stencil also counts it into its bin (an atomic on a
+//     (B, bins) counter, whose first count appends the bin to the env's bin
+//     list); one block per env turns the listed bins' counts into offsets
+//     (an exclusive scan) and writes the permutation; P2G's threads then
+//     take the particles in that order, so the lanes of a warp that share a
+//     bin share all 27 nodes, sum each node's shares over the warp by
+//     shuffles in double (WarpScatter in mpm_device.cuh) and add them by one
+//     double atomic per bin and warp. shape_elasto_plastic holds ~27
+//     particles per bin, so ~10x fewer atomics land on each cell. G2P's
+//     adjoint scatters the grid cotangent by the same permutation and
+//     scheme. The P2G launch resets the counters it read, the scan the bin
+//     list, so nothing needs clearing between launches. G2P's launch zeroes
+//     and counts the next substep's stencils (and saves its carry), so a
+//     substep is four launches here too: the scan, P2G, the grid ops, G2P.
+//   - No windows. The Pallas kernel sorts particles by cell each macro step
+//     so that its x/y windows cover each 128-particle chunk, and drops
+//     support outside a window; a scatter needs no window. Nodes outside the
+//     grid are dropped as the plain step drops them, and nothing else is.
+//     Outputs stay in the particles' order.
 //   - The primitives' frames of all substeps (steps + 1 rows) are computed
 //     once per env in the pack launch, as K2-fwd does.
 //   - Every per-env offset is taken in size_t (pour_soup at 128 envs holds
 //     more than 2^31 bytes of grid).
-//   - K3-bwd's per-env sums (the primitives' cotangents of a substep, the
-//     ground friction's, the Lame parameters' and yield stress's when they
-//     are per env) first sum over a block in shared memory in double, then
-//     one double atomicAdd per block and component adds into the env's
-//     accumulators in device memory; the per-particle Lame and yield
-//     cotangents stay in double over the substeps (their terms cancel to
-//     ~1e-2 of their size), as in K2-bwd.
-//   - When a gradient is wanted (K3-fwd with checkpoints, K3-seg, K3-bwd),
-//     P2G sums in double, so that its result does not depend on the order
-//     of the atomics at float32's precision: K3-bwd recomputes each
-//     substep's grid from the saved carry and so takes the adjoint at the
-//     grid the forward used. G2P's adjoint sums the grid cotangent in
-//     double too, so the gradient does not depend on the order either. With float sums in another order, shape_elasto_plastic's
-//     primitive cotangents, sums of 1/dt-amplified terms that cancel, landed
-//     2.3x further from float64 than the float32 plain step's (H100,
-//     chip_smoke.py's [big-bwd-parity]).
+//   - K3-bwd's reversed substep: zero the stencils and count (only where the
+//     previous launch has not: at a segment's last carry), the scan, P2G,
+//     the grid ops keeping each cell's momentum and mass, G2P's adjoint,
+//     the grid ops' adjoint and the forward kinematics', the particle
+//     adjoint with the next reversed substep's zeroing and count: six
+//     launches. The per-env sums (the primitives' cotangents of a substep,
+//     the ground friction's, the Lame parameters' and yield stress's when
+//     they are per env) sum per thread, over a warp by shuffles and over a
+//     block in shared memory in double, then one double atomicAdd per block
+//     and component into the env's accumulators; the env's last block of
+//     the grid ops' adjoint (a counter per env) runs the forward
+//     kinematics' adjoint, one thread per primitive. The per-particle Lame
+//     and yield cotangents stay in double over the substeps (their terms
+//     cancel to ~1e-2 of their size), as in K2-bwd.
 //   - Scratch per env beside K3-fwd's: P2G's double sums (32 B per cell),
-//     the grid cotangent's double sums (32 B) and float4 (16 B),
-//     each touched cell's momentum and mass before the grid ops (16 B per
-//     list slot), the carry's cotangent and the per-particle accumulators,
-//     and with K > 1 a segment of K carries.
+//     the bins' counters (4 B per bin) and list, each particle's bin, rank
+//     in its bin and sorted slot (12 B); K3-bwd's: the grid cotangent's
+//     double sums (32 B per cell) and float4 (16 B), each touched cell's
+//     momentum and mass before the grid ops (16 B per list slot), the
+//     carry's cotangent and the per-particle accumulators, and with K > 1 a
+//     segment of K carries.
 //   - IEEE division and square roots; atomics add in a varying order, so
 //     a rollout is not bitwise reproducible from run to run, and a
 //     gradient's double sums only where one lies at a float's rounding
 //     boundary.
 
+#include <type_traits>
+
 #include "mpm_device.cuh"
 
 namespace {
 
-constexpr int NT = 256;  // threads per block
+constexpr int NT = 256;            // threads per block
+constexpr int BIN_NT = 1024;       // threads of the bins' scan, one block per env
 constexpr int N_EACC = N_ACC + 3;  // an env's accumulators: the primitives', gf, mu, lamda, ys
 
 // What K3 keeps in device memory beside the forward's Args (g.grid and
@@ -121,8 +146,16 @@ struct BigArgs {
   int list_cap;
   const float* src;    // zero launch: copy env b's carry from src + b * src_stride first
   size_t src_stride;
-  float* save;         // zero launch: then copy it to save + b * save_stride
+  float* save;         // zero and G2P launches: then copy it to save + b * save_stride
   size_t save_stride;
+  // the sort by bin (with a gradient); all 0 before a launch sequence
+  int* bins;           // (B, n_keys): particles per bin, then each bin's first slot
+  int* bin_list;       // (B, bin_cap): the bins in use
+  int* n_bin_list;     // (B,)
+  int* key;            // (B, P): each particle's bin
+  int* rank;           // (B, P): its place in the bin
+  int* perm;           // (B, P): the particles in bin order
+  int n_keys, bin_cap;
 };
 
 // What K3-bwd reads and writes beside them.
@@ -141,6 +174,7 @@ struct BigBwd {
   float* dpq;                           // (B, MAX_PRIM, 7): the current frame's cotangent
   double* pacc;                         // (B, 3, P): mu, lamda, yield stress per particle
   double* eacc;                         // (B, N_EACC)
+  int* done;                            // (B,): blocks of the grid ops' adjoint finished
 };
 
 __device__ __forceinline__ size_t env_cells(const Args& g) { return (size_t)g.rx * g.ry * g.rz; }
@@ -166,8 +200,32 @@ __device__ __forceinline__ float* env_rows(const Args& g, const BigArgs& a, int 
   return a.rows + (size_t)b * (g.steps + 1) * g.n_prim * ROW;
 }
 
-// the inputs into the carry; block 0 of each env computes its frames
-__global__ void __launch_bounds__(NT) big_pack_kernel(Args g, BigArgs a) {
+// With a gradient: the double sums (and the cotangent's, dsum, when set)
+// and marks under particle p's stencil at x to 0, and p counted into its bin
+__device__ __forceinline__ void zero_and_count(const float* x, int p, const Args& g,
+                                               const BigArgs& a, int b, GridAcc* dsum) {
+  const size_t cells = env_cells(g);
+  zero_stencil(x, g, a.gacc + (size_t)b * cells, g.mark + (size_t)b * cells,
+               dsum ? dsum + (size_t)b * cells : dsum);
+  Stencil st;
+  stencil(x, g.inv_dx, st);
+  const int key = bin_key(st, g);
+  const int r = atomicAdd(a.bins + (size_t)b * a.n_keys + key, 1);
+  if (r == 0) a.bin_list[(size_t)b * a.bin_cap + atomicAdd(a.n_bin_list + b, 1)] = key;
+  a.key[(size_t)b * g.P + p] = key;
+  a.rank[(size_t)b * g.P + p] = r;
+}
+
+__device__ __forceinline__ void save_carry(const float* ps, int P, int p, const BigArgs& a,
+                                           int b) {
+  float* save = a.save + (size_t)b * a.save_stride;
+  for (int c = 0; c < N_COMP; ++c) save[c * P + p] = ps[c * P + p];
+}
+
+// the inputs into the carry; block 0 of each env computes its frames. With
+// `zero` (a gradient's first substep), also zero and count the stencils and
+// save the carry where a.save is set.
+__global__ void __launch_bounds__(NT) big_pack_kernel(Args g, BigArgs a, int zero) {
   const int b = blockIdx.y, P = g.P;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (blockIdx.x == 0 && threadIdx.x == 0) fk_rows(g, b, env_rows(g, a, b));
@@ -183,13 +241,19 @@ __global__ void __launch_bounds__(NT) big_pack_kernel(Args g, BigArgs a) {
     ps[(IF + e) * P + p] = g.F[o * 9 + e];
   }
   ps[IJ * P + p] = g.J[o];
+  if (!zero) return;
+  if (a.save) save_carry(ps, P, p, a, b);
+  const float x[3] = {ps[IX * P + p], ps[(IX + 1) * P + p], ps[(IX + 2) * P + p]};
+  zero_and_count(x, p, g, a, b, nullptr);
 }
 
 // 1. the carry copied in from a.src and out to a.save where they are set,
 // then the grid (and its cotangent's sums, when dsum is set) and marks
-// under each particle's stencil to 0
+// under each particle's stencil to 0; with a gradient (G = GridAcc) and
+// `count`, each particle counted into its bin
 template <class G>
-__global__ void __launch_bounds__(NT) big_zero_kernel(Args g, BigArgs a, GridAcc* dsum) {
+__global__ void __launch_bounds__(NT) big_zero_kernel(Args g, BigArgs a, GridAcc* dsum,
+                                                      int count) {
   const int b = blockIdx.y, P = g.P;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (blockIdx.x == 0 && threadIdx.x == 0) a.n_touched[b] = 0;
@@ -199,26 +263,97 @@ __global__ void __launch_bounds__(NT) big_zero_kernel(Args g, BigArgs a, GridAcc
     const float* src = a.src + (size_t)b * a.src_stride;
     for (int c = 0; c < N_COMP; ++c) ps[c * P + p] = src[c * P + p];
   }
-  if (a.save) {
-    float* save = a.save + (size_t)b * a.save_stride;
-    for (int c = 0; c < N_COMP; ++c) save[c * P + p] = ps[c * P + p];
-  }
+  if (a.save) save_carry(ps, P, p, a, b);
   const float x[3] = {ps[IX * P + p], ps[(IX + 1) * P + p], ps[(IX + 2) * P + p]};
+  if constexpr (std::is_same<G, GridAcc>::value) {
+    if (count) {
+      zero_and_count(x, p, g, a, b, dsum);
+      return;
+    }
+  }
   const size_t cells = env_cells(g);
   zero_stencil(x, g, sums<G>(g, a) + (size_t)b * cells, g.mark + (size_t)b * cells,
                dsum ? dsum + (size_t)b * cells : dsum);
 }
 
-// 2. stress and P2G; F after the return map back into the carry when write_F
-template <class G>
+// 1b. with a gradient: the bins' counts into offsets (an exclusive scan over
+// the env's bin list), the permutation of the particles into bin order;
+// the bin list and the touched count back to 0. One block per env.
+__global__ void __launch_bounds__(BIN_NT) big_bin_kernel(Args g, BigArgs a) {
+  __shared__ int warp_sums[BIN_NT / 32];
+  const int b = blockIdx.x, tid = threadIdx.x, P = g.P;
+  const int lane = tid & 31, warp = tid >> 5;
+  int* bins = a.bins + (size_t)b * a.n_keys;
+  const int* list = a.bin_list + (size_t)b * a.bin_cap;
+  const int n = a.n_bin_list[b];
+  const int chunk = (n + BIN_NT - 1) / BIN_NT;
+  const int lo = min(n, tid * chunk), hi = min(n, lo + chunk);
+  int sum = 0;
+  for (int s = lo; s < hi; ++s) sum += bins[list[s]];
+  int incl = sum;  // inclusive scan over the warp, then over the warps
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(FULL_MASK, incl, off);
+    if (lane >= off) incl += o;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = warp_sums[lane];
+    int wi = w;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int o = __shfl_up_sync(FULL_MASK, wi, off);
+      if (lane >= off) wi += o;
+    }
+    warp_sums[lane] = wi - w;
+  }
+  __syncthreads();
+  int off = warp_sums[warp] + incl - sum;
+  for (int s = lo; s < hi; ++s) {
+    const int k = list[s], c = bins[k];
+    bins[k] = off;
+    off += c;
+  }
+  __syncthreads();
+  const int* key = a.key + (size_t)b * P;
+  const int* rank = a.rank + (size_t)b * P;
+  int* perm = a.perm + (size_t)b * P;
+  for (int p = tid; p < P; p += BIN_NT) perm[bins[key[p]] + rank[p]] = p;
+  if (tid == 0) {
+    a.n_bin_list[b] = 0;
+    a.n_touched[b] = 0;
+  }
+}
+
+// 2. stress and P2G (a rollout: float atomics into the float4 grid); F
+// after the return map back into the carry when write_F
 __global__ void __launch_bounds__(NT) big_p2g_kernel(Args g, BigArgs a, int write_F) {
   const int b = blockIdx.y, P = g.P;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= P) return;
   float* ps = env_carry(a, b);
   const size_t cells = env_cells(g);
-  p2g_particle(ps, write_F ? ps : nullptr, P, p, g, b, sums<G>(g, a) + (size_t)b * cells,
-               g.mark + (size_t)b * cells, a.touched + (size_t)b * a.list_cap, a.n_touched + b);
+  AtomicScatter<float4> s{g.grid + (size_t)b * cells, g.mark + (size_t)b * cells,
+                          a.touched + (size_t)b * a.list_cap, a.n_touched + b};
+  p2g_particle(ps, write_F ? ps : nullptr, P, p, true, g, b, s);
+}
+
+// 2'. the same with a gradient: the particles in bin order, each node's
+// shares summed over a bin's lanes before one double atomic; each
+// particle's bin counter back to 0
+__global__ void __launch_bounds__(NT) big_p2g_sorted_kernel(Args g, BigArgs a, int write_F) {
+  const int b = blockIdx.y, P = g.P;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i - (int)(threadIdx.x & 31) >= P) return;  // a warp without particles
+  const bool live = i < P;
+  const int p = live ? a.perm[(size_t)b * P + i] : 0;
+  if (live) a.bins[(size_t)b * a.n_keys + a.key[(size_t)b * P + p]] = 0;
+  float* ps = env_carry(a, b);
+  const size_t cells = env_cells(g);
+  WarpScatter s{a.gacc + (size_t)b * cells, g.mark + (size_t)b * cells,
+                a.touched + (size_t)b * a.list_cap, a.n_touched + b, 0u, false};
+  p2g_particle(ps, write_F ? ps : nullptr, P, p, live, g, b, s);
 }
 
 // 3. the grid ops of substep f on the env's touched cells, from P2G's sums
@@ -244,12 +379,20 @@ __global__ void __launch_bounds__(NT) big_grid_kernel(Args g, BigArgs a, int f, 
   }
 }
 
-// 4. G2P, advection and J
-__global__ void __launch_bounds__(NT) big_g2p_kernel(Args g, BigArgs a) {
+// 4. G2P, advection and J; then the carry to a.save where set, and with
+// `next` (a gradient's substep that another follows) the next substep's
+// stencils zeroed and counted
+__global__ void __launch_bounds__(NT) big_g2p_kernel(Args g, BigArgs a, int next) {
   const int b = blockIdx.y, P = g.P;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= P) return;
-  g2p_advect_particle(env_carry(a, b), P, p, g, g.grid + (size_t)b * env_cells(g));
+  float* ps = env_carry(a, b);
+  g2p_advect_particle(ps, P, p, g, g.grid + (size_t)b * env_cells(g));
+  if (a.save) save_carry(ps, P, p, a, b);
+  if (next) {
+    const float x[3] = {ps[IX * P + p], ps[(IX + 1) * P + p], ps[(IX + 2) * P + p]};
+    zero_and_count(x, p, g, a, b, nullptr);
+  }
 }
 
 // the carry out; block 0 of each env writes the trajectory rows 1 .. steps
@@ -296,6 +439,7 @@ __global__ void __launch_bounds__(NT) big_bwd_pack_kernel(Args g, BigBwd w) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (blockIdx.x == 0) {
     for (int k = threadIdx.x; k < N_EACC; k += blockDim.x) w.eacc[(size_t)b * N_EACC + k] = 0.0;
+    if (threadIdx.x == 0) w.done[b] = 0;
     for (int k = threadIdx.x; k < np * 7; k += blockDim.x) {
       const int ip = k / 7, d = k % 7;
       const size_t row = ((size_t)b * np + ip) * (steps + 1);
@@ -320,31 +464,31 @@ __global__ void __launch_bounds__(NT) big_bwd_pack_kernel(Args g, BigBwd w) {
   pacc[p] = pacc[P + p] = pacc[2 * P + p] = 0.0;
 }
 
-// 4'. G2P's and advection's adjoint: a gather of the post-op grid, a
-// scatter into the grid cotangent
+// 4'. G2P's and advection's adjoint, the particles in the bin order of the
+// recomputed P2G: a gather of the post-op grid, a scatter into the grid
+// cotangent's double sums by WarpScatter
 __global__ void __launch_bounds__(NT) big_g2p_bwd_kernel(Args g, BigArgs a, BigBwd w) {
   const int b = blockIdx.y, P = g.P;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i - (int)(threadIdx.x & 31) >= P) return;  // a warp without particles
+  const bool live = i < P;
+  const int p = live ? a.perm[(size_t)b * P + i] : 0;
   const size_t cells = env_cells(g);
-  g2p_adjoint_particle(env_carry(a, b), w.cot + (size_t)b * N_COMP * P, P, p, g,
-                       g.grid + (size_t)b * cells, w.dsum + (size_t)b * cells);
+  WarpScatter s{w.dsum + (size_t)b * cells, nullptr, nullptr, nullptr, 0u, false};
+  g2p_adjoint_particle(env_carry(a, b), w.cot + (size_t)b * N_COMP * P, P, p, live, g,
+                       g.grid + (size_t)b * cells, s);
 }
 
-// the block's sums in shared memory, in double
-struct BlockAcc {
-  double* a;
-  __device__ __forceinline__ void add(int k, double v) {
-    if (v != 0.0) atomicAdd(a + k, v);
-  }
-};
-
 // 3'. the grid ops' adjoint on the env's touched cells; the primitives' and
-// the ground friction's cotangents sum over the block, then into the env's
+// the ground friction's cotangents sum per thread, over the warp and over
+// the block, then into the env's. The env's last block to finish then runs
+// the forward kinematics' adjoint at substep f (thread ip for primitive ip)
+// and puts the substep's primitive cotangents back to 0.
 __global__ void __launch_bounds__(NT) big_grid_bwd_kernel(Args g, BigArgs a, BigBwd w, int f) {
   __shared__ Prim prims[MAX_PRIM];
   __shared__ double sacc[N_ACC];
-  const int b = blockIdx.y, tid = threadIdx.x;
+  __shared__ int last;
+  const int b = blockIdx.y, tid = threadIdx.x, np = g.n_prim;
   if (tid == 0) load_prims(g, b, f, env_rows(g, a, b), prims);
   for (int k = tid; k < N_ACC; k += blockDim.x) sacc[k] = 0.0;
   __syncthreads();
@@ -354,37 +498,51 @@ __global__ void __launch_bounds__(NT) big_grid_bwd_kernel(Args g, BigArgs a, Big
   const GridAcc* dsum = w.dsum + (size_t)b * env_cells(g);
   float4* dgrid = w.dgrid + (size_t)b * env_cells(g);
   const float gf = g.ground_friction[(size_t)b * g.gf_sb];
-  BlockAcc acc{sacc};
-  for (int i = blockIdx.x * blockDim.x + tid; i < n; i += gridDim.x * blockDim.x)
-    grid_op_bwd(touched[i], pre[i], dsum, dgrid, prims, gf, g, acc);
+  {
+    ThreadAcc acc;
+    acc.zero(np);
+    for (int i = blockIdx.x * blockDim.x + tid; i < n; i += gridDim.x * blockDim.x)
+      grid_op_bwd(touched[i], pre[i], dsum, dgrid, prims, gf, g, acc);
+    acc.flush(np, sacc);
+  }
   __syncthreads();
   double* eacc = w.eacc + (size_t)b * N_EACC;
   for (int k = tid; k < N_ACC; k += blockDim.x)
     if (sacc[k] != 0.0) atomicAdd(eacc + k, sacc[k]);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(w.done + b, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (tid < np) {
+    double pa[NPA];
+    for (int k = 0; k < NPA; ++k) pa[k] = __ldcg(eacc + tid * NPA + k);
+    fk_adjoint_prim(g, b, f, tid, env_rows(g, a, b), pa, w.dpos, w.drot, w.gframe, w.gvw,
+                    w.dpq + ((size_t)b * MAX_PRIM + tid) * 7);
+    for (int k = 0; k < PA_SIZE; ++k) eacc[tid * NPA + k] = 0.0;
+  }
+  if (tid == 0) w.done[b] = 0;
 }
 
-// 2'. P2G's adjoint (a gather from the grid cotangent) and the stress's,
-// the return maps', the SVD's and F's update's
-__global__ void __launch_bounds__(NT) big_particle_bwd_kernel(Args g, BigArgs a, BigBwd w) {
+// 2''. P2G's adjoint (a gather from the grid cotangent) and the stress's,
+// the return maps', the SVD's and F's update's; with `next` (env b's carry
+// of the next reversed substep at next + b * next_stride), that carry's
+// stencils zeroed (with the cotangent's sums) and counted
+__global__ void __launch_bounds__(NT) big_particle_bwd_kernel(Args g, BigArgs a, BigBwd w,
+                                                              const float* next,
+                                                              size_t next_stride) {
   const int b = blockIdx.y, P = g.P;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= P) return;
   particle_adjoint_particle(env_carry(a, b), w.cot + (size_t)b * N_COMP * P,
                             w.pacc + (size_t)b * 3 * P, P, p, g, b,
                             w.dgrid + (size_t)b * env_cells(g));
-}
-
-// the forward kinematics' adjoint at substep t, one thread per env; the
-// substep's primitive cotangents back to 0
-__global__ void __launch_bounds__(NT) big_fk_bwd_kernel(Args g, BigArgs a, BigBwd w, int t,
-                                                        int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  double* eacc = w.eacc + (size_t)b * N_EACC;
-  fk_adjoint(g, b, t, env_rows(g, a, b), eacc, w.dpos, w.drot, w.gframe, w.gvw,
-             w.dpq + (size_t)b * MAX_PRIM * 7);
-  for (int k = 0; k < MAX_PRIM * NPA; ++k)
-    if (k % NPA < PA_SIZE) eacc[k] = 0.0;
+  if (next) {
+    const float* c = next + (size_t)b * next_stride;
+    const float x[3] = {c[IX * P + p], c[(IX + 1) * P + p], c[(IX + 2) * P + p]};
+    zero_and_count(x, p, g, a, b, w.dsum);
+  }
 }
 
 // the cotangents out: the carry's, the per-particle Lame and yield ones, and
@@ -429,26 +587,69 @@ __global__ void __launch_bounds__(NT) big_bwd_finish_kernel(Args g, BigBwd w, in
   if (!g.ys_sp) w.gys[b] = (float)eacc[N_ACC + 2];
 }
 
+// K3's kernels by number, for mpm_big_step_kernel_info
+template <typename F>
+cudaError_t kernel_attributes(int which, F&& with) {
+  switch (which) {
+    case 0: return with((const void*)big_zero_kernel<GridAcc>);
+    case 1: return with((const void*)big_bin_kernel);
+    case 2: return with((const void*)big_p2g_sorted_kernel);
+    case 3: return with((const void*)big_grid_kernel<GridAcc>);
+    case 4: return with((const void*)big_g2p_kernel);
+    case 5: return with((const void*)big_g2p_bwd_kernel);
+    case 6: return with((const void*)big_grid_bwd_kernel);
+    case 7: return with((const void*)big_particle_bwd_kernel);
+    case 8: return with((const void*)big_p2g_kernel);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* unidom_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
+// What the card makes of K3's kernel `which` (0 the zero and count launch,
+// 1 the bins' scan, 2 P2G with a gradient, 3 the grid ops, 4 G2P, 5 G2P's
+// adjoint, 6 the grid ops' adjoint, 7 the particle adjoint, 8 a rollout's
+// P2G): out = registers per thread, local memory per thread (bytes), static
+// shared memory (bytes), threads per block and blocks per SM (the
+// occupancy API). Returns a cudaError_t.
+int mpm_big_step_kernel_info(int which, int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)kernel_attributes(which, [&](const void* k) {
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, k);
+    if (e != cudaSuccess) return e;
+    out[0] = attr.numRegs;
+    out[1] = (int)attr.localSizeBytes;
+    out[2] = (int)attr.sharedSizeBytes;
+    out[3] = which == 1 ? BIN_NT : NT;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], k, out[3], 0);
+  });
+}
+
 // K3's launches on the stream, counted into *n_launches. what 0: K3-fwd,
 // one macro step (4 * steps + 2 launches), writing the carry of every K-th
 // substep to hist (B, ceil(steps / K), N_COMP, P) and summing P2G in gacc
-// (B, cells, 4 doubles), unless hist is null (a rollout: P2G sums in the
-// float4 grid; gacc may be null). what 1:
+// (B, cells, 4 doubles) in bin order, unless hist is null (a rollout: P2G
+// sums in the float4 grid by float atomics; gacc may be null). what 1:
 // K3-seg alone, segment `segment` from hist into seg_out (B, L, N_COMP, P).
 // what 2: K3-bwd from the history (with K3-seg into seg_out (B, K, N_COMP,
 // P) per segment when K > 1), the output cotangents bwd_in (dx, dv, dC, dF,
 // dJ, dpos, drot) and into bwd_out (the cotangents of x, v, C, F, J, mu,
-// lamda, yield_stress, ground friction, frame, vw). grid (B, cells, 4) and
-// mark (B, cells) are scratch that needs no clearing; ps (B, N_COMP, P),
-// rows (B, steps + 1, n_prim, ROW), touched (B, list_cap) and n_touched (B)
-// likewise; K3-bwd's scratch: bwd_floats, per env 4 cells + 4 list_cap +
-// N_COMP P + 7 MAX_PRIM, and bwd_doubles, per env 4 cells + 3 P + N_EACC.
+// lamda, yield_stress, ground friction, frame, vw). what 3: the gradient's
+// P2G of carry `segment` of hist alone, into gacc and mark (the grid that
+// K3-bwd recomputes). grid (B, cells, 4) and mark (B, cells) are scratch
+// that needs no clearing; ps (B, N_COMP, P), rows (B, steps + 1, n_prim,
+// ROW), touched (B, list_cap) and n_touched (B) likewise; with a gradient,
+// bin_ints (ops/cuda/mpm_big_kernel.py bin_scratch: per env the bins'
+// counters n_keys, n_bin_list 1, bin_list bin_cap, key, rank and perm P
+// each) must be 0 on entry and is 0 again on exit; K3-bwd's scratch:
+// bwd_floats, per env 4 cells + 4 list_cap + N_COMP P + 7 MAX_PRIM, and
+// bwd_doubles, per env 4 cells + 3 P + N_EACC, and bwd_ints, one per env.
 // grid_blocks is the number of blocks per env of the grid-op launches.
 int mpm_big_step_launch(const float* x, const float* v, const float* C, const float* F,
                         const float* J, const float* mu, int mu_sb, int mu_sp, const float* lamda,
@@ -464,12 +665,15 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
                         float p_mass, float gx, float gy, float gz, int device, void* stream,
                         float* hist, int K, int what, int segment, float* seg_out,
                         const float* const* bwd_in, float* const* bwd_out, float* bwd_floats,
-                        double* bwd_doubles, int* n_launches) {
+                        double* bwd_doubles, int* bin_ints, int n_keys, int bin_cap,
+                        int* bwd_ints, int* n_launches) {
   *n_launches = 0;
   const long cells = (long)rx * ry * rz;
   if (B < 1 || B > 65535 || P < 1 || n_prim < 0 || n_prim > MAX_PRIM || steps < 1 ||
       cells < 1 || cells > 0x7fffffffL || list_cap < 1 || list_cap > cells || grid_blocks < 1 ||
-      K < 1 || K > steps || what < 0 || what > 2 || (what > 0 && !hist) || (hist && !gacc))
+      K < 1 || K > steps || what < 0 || what > 3 || (what > 0 && !hist) || (hist && !gacc) ||
+      (hist && (!bin_ints || n_keys != (rx + 2) * (ry + 2) * (rz + 2) + 1 ||
+                bin_cap != (P < n_keys ? P : n_keys))))
     return (int)cudaErrorInvalidValue;
   Args g;
   g.x = x; g.v = v; g.C = C; g.F = F; g.J = J;
@@ -493,6 +697,13 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
   a.ps = ps; a.ps_stride = carry;
   a.rows = rows; a.touched = touched; a.n_touched = n_touched; a.list_cap = list_cap;
   a.src = nullptr; a.src_stride = 0; a.save = nullptr; a.save_stride = 0;
+  a.n_keys = n_keys; a.bin_cap = bin_cap;
+  a.bins = bin_ints;
+  a.n_bin_list = bin_ints ? a.bins + (size_t)B * n_keys : nullptr;
+  a.bin_list = bin_ints ? a.n_bin_list + B : nullptr;
+  a.key = bin_ints ? a.bin_list + (size_t)B * bin_cap : nullptr;
+  a.rank = bin_ints ? a.key + (size_t)B * P : nullptr;
+  a.perm = bin_ints ? a.rank + (size_t)B * P : nullptr;
 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -504,53 +715,86 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;   \
     ++*n_launches;                                                     \
   } while (0)
-  // one forward substep f of the working carry, in place
-#define UNIDOM_SUBSTEP(G, f)                                           \
-  do {                                                                 \
-    big_p2g_kernel<G><<<particles, NT, 0, s>>>(g, a, 1);               \
-    UNIDOM_LAUNCHED();                                                 \
-    big_grid_kernel<G><<<cells_grid, NT, 0, s>>>(g, a, (f), nullptr);  \
-    UNIDOM_LAUNCHED();                                                 \
-    big_g2p_kernel<<<particles, NT, 0, s>>>(g, a);                     \
-    UNIDOM_LAUNCHED();                                                 \
+  // a gradient's P2G of the working carry, zeroed and counted: the scan,
+  // then P2G in bin order
+#define UNIDOM_SORTED_P2G(write_F)                                              \
+  do {                                                                          \
+    big_bin_kernel<<<B, BIN_NT, 0, s>>>(g, a);                                  \
+    UNIDOM_LAUNCHED();                                                          \
+    big_p2g_sorted_kernel<<<particles, NT, 0, s>>>(g, a, (write_F));            \
+    UNIDOM_LAUNCHED();                                                          \
+  } while (0)
+  // a gradient's forward substep f of the working carry, in place, from its
+  // zeroed and counted stencils; the new carry to a.save where set, and
+  // with `next` its stencils zeroed and counted
+#define UNIDOM_GRAD_SUBSTEP(f, next)                                            \
+  do {                                                                          \
+    UNIDOM_SORTED_P2G(1);                                                       \
+    big_grid_kernel<GridAcc><<<cells_grid, NT, 0, s>>>(g, a, (f), nullptr);     \
+    UNIDOM_LAUNCHED();                                                          \
+    big_g2p_kernel<<<particles, NT, 0, s>>>(g, a, (next));                      \
+    UNIDOM_LAUNCHED();                                                          \
   } while (0)
   // K3-seg: segment sg's L carries from its checkpoint into out (env
   // stride out_stride), the working carry ps; 4 L - 3 launches
 #define UNIDOM_SEGMENT(sg, out, out_stride)                                          \
   do {                                                                               \
-    const int t0_ = (sg) * K, L_ = K < steps - t0_ ? K : steps - t0_;                              \
-    for (int j = 0; j < L_; ++j) {                                                   \
-      a.src = j == 0 ? hist + (size_t)(sg) * carry : nullptr;                        \
-      a.src_stride = (size_t)n_ckpt * carry;                                         \
-      a.save = (out) + (size_t)j * carry;                                            \
-      a.save_stride = (out_stride);                                                  \
-      big_zero_kernel<GridAcc><<<particles, NT, 0, s>>>(g, a, (GridAcc*)nullptr);    \
-      UNIDOM_LAUNCHED();                                                             \
-      a.src = nullptr;                                                               \
-      a.save = nullptr;                                                              \
-      if (j + 1 < L_) UNIDOM_SUBSTEP(GridAcc, t0_ + j);                              \
+    const int t0_ = (sg) * K, L_ = K < steps - t0_ ? K : steps - t0_;                \
+    a.src = hist + (size_t)(sg) * carry;                                             \
+    a.src_stride = (size_t)n_ckpt * carry;                                           \
+    a.save = (out);                                                                  \
+    a.save_stride = (out_stride);                                                    \
+    big_zero_kernel<GridAcc><<<particles, NT, 0, s>>>(g, a, (GridAcc*)nullptr,       \
+                                                      L_ > 1);                       \
+    UNIDOM_LAUNCHED();                                                               \
+    a.src = nullptr;                                                                 \
+    for (int j = 0; j + 1 < L_; ++j) {                                               \
+      a.save = (out) + (size_t)(j + 1) * carry;                                      \
+      UNIDOM_GRAD_SUBSTEP(t0_ + j, j + 2 < L_);                                      \
     }                                                                                \
+    a.save = nullptr;                                                                \
   } while (0)
 
-  if (what == 0) {  // K3-fwd
-    big_pack_kernel<<<particles, NT, 0, s>>>(g, a);
+  if (what == 0 && !hist) {  // K3-fwd in a rollout
+    big_pack_kernel<<<particles, NT, 0, s>>>(g, a, 0);
     UNIDOM_LAUNCHED();
     for (int f = 0; f < steps; ++f) {
-      a.save = hist && f % K == 0 ? hist + (size_t)(f / K) * carry : nullptr;
-      a.save_stride = (size_t)n_ckpt * carry;
-      if (hist)
-        big_zero_kernel<GridAcc><<<particles, NT, 0, s>>>(g, a, (GridAcc*)nullptr);
-      else
-        big_zero_kernel<float4><<<particles, NT, 0, s>>>(g, a, (GridAcc*)nullptr);
+      big_zero_kernel<float4><<<particles, NT, 0, s>>>(g, a, (GridAcc*)nullptr, 0);
       UNIDOM_LAUNCHED();
-      a.save = nullptr;
-      if (hist)
-        UNIDOM_SUBSTEP(GridAcc, f);
-      else
-        UNIDOM_SUBSTEP(float4, f);
+      big_p2g_kernel<<<particles, NT, 0, s>>>(g, a, 1);
+      UNIDOM_LAUNCHED();
+      big_grid_kernel<float4><<<cells_grid, NT, 0, s>>>(g, a, f, nullptr);
+      UNIDOM_LAUNCHED();
+      big_g2p_kernel<<<particles, NT, 0, s>>>(g, a, 0);
+      UNIDOM_LAUNCHED();
     }
     big_unpack_kernel<<<particles, NT, 0, s>>>(g, a);
     UNIDOM_LAUNCHED();
+    return (int)cudaSuccess;
+  }
+  if (what == 0) {  // K3-fwd with checkpoints
+    a.save = hist;
+    a.save_stride = (size_t)n_ckpt * carry;
+    big_pack_kernel<<<particles, NT, 0, s>>>(g, a, 1);
+    UNIDOM_LAUNCHED();
+    for (int f = 0; f < steps; ++f) {
+      a.save = f + 1 < steps && (f + 1) % K == 0 ? hist + (size_t)((f + 1) / K) * carry
+                                                   : nullptr;
+      UNIDOM_GRAD_SUBSTEP(f, f + 1 < steps);
+    }
+    a.save = nullptr;
+    big_unpack_kernel<<<particles, NT, 0, s>>>(g, a);
+    UNIDOM_LAUNCHED();
+    return (int)cudaSuccess;
+  }
+  if (what == 3) {  // the gradient's P2G of one carry of the history
+    if (segment < 0 || segment >= n_ckpt) return (int)cudaErrorInvalidValue;
+    a.src = hist + (size_t)segment * carry;
+    a.src_stride = (size_t)n_ckpt * carry;
+    big_zero_kernel<GridAcc><<<particles, NT, 0, s>>>(g, a, (GridAcc*)nullptr, 1);
+    UNIDOM_LAUNCHED();
+    a.src = nullptr;
+    UNIDOM_SORTED_P2G(0);
     return (int)cudaSuccess;
   }
   big_rows_kernel<<<env_blocks, NT, 0, s>>>(g, a, B);
@@ -562,7 +806,7 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
     return (int)cudaSuccess;
   }
   // K3-bwd
-  if (!bwd_in || !bwd_out || !bwd_floats || !bwd_doubles || (K > 1 && !seg_out))
+  if (!bwd_in || !bwd_out || !bwd_floats || !bwd_doubles || !bwd_ints || (K > 1 && !seg_out))
     return (int)cudaErrorInvalidValue;
   BigBwd w;
   w.dx = bwd_in[0]; w.dv = bwd_in[1]; w.dC = bwd_in[2]; w.dF = bwd_in[3]; w.dJ = bwd_in[4];
@@ -577,9 +821,11 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
   w.dsum = (GridAcc*)bwd_doubles;
   w.pacc = bwd_doubles + (size_t)B * cells * 4;
   w.eacc = w.pacc + (size_t)B * 3 * P;
+  w.done = bwd_ints;
   big_bwd_pack_kernel<<<particles, NT, 0, s>>>(g, w);
   UNIDOM_LAUNCHED();
   float* ps_work = a.ps;
+  bool counted = false;  // whether the next reversed substep's stencils are zeroed and counted
   for (int sg = n_ckpt - 1; sg >= 0; --sg) {
     const int t0 = sg * K, L = K < steps - t0 ? K : steps - t0;
     const float* base;  // the segment's carries, env b's j-th at base + b * stride + j * carry
@@ -597,20 +843,27 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
     for (int t = t0 + L - 1; t >= t0; --t) {
       a.ps = (float*)(base + (size_t)(t - t0) * carry);  // read only from here on
       a.ps_stride = stride;
-      big_zero_kernel<GridAcc><<<particles, NT, 0, s>>>(g, a, w.dsum);
-      UNIDOM_LAUNCHED();
-      big_p2g_kernel<GridAcc><<<particles, NT, 0, s>>>(g, a, 0);
-      UNIDOM_LAUNCHED();
+      if (!counted) {
+        big_zero_kernel<GridAcc><<<particles, NT, 0, s>>>(g, a, w.dsum, 1);
+        UNIDOM_LAUNCHED();
+      }
+      UNIDOM_SORTED_P2G(0);
       big_grid_kernel<GridAcc><<<cells_grid, NT, 0, s>>>(g, a, t, w.pre);
       UNIDOM_LAUNCHED();
       big_g2p_bwd_kernel<<<particles, NT, 0, s>>>(g, a, w);
       UNIDOM_LAUNCHED();
       big_grid_bwd_kernel<<<cells_grid, NT, 0, s>>>(g, a, w, t);
       UNIDOM_LAUNCHED();
-      big_particle_bwd_kernel<<<particles, NT, 0, s>>>(g, a, w);
+      // the next reversed substep's carry, where it is at hand already
+      const float* next = nullptr;
+      size_t next_stride = 0;
+      if (t > 0 && (K == 1 || t > t0)) {
+        next = K == 1 ? hist + (size_t)(t - 1) * carry : base + (size_t)(t - 1 - t0) * carry;
+        next_stride = stride;
+      }
+      big_particle_bwd_kernel<<<particles, NT, 0, s>>>(g, a, w, next, next_stride);
       UNIDOM_LAUNCHED();
-      big_fk_bwd_kernel<<<env_blocks, NT, 0, s>>>(g, a, w, t, B);
-      UNIDOM_LAUNCHED();
+      counted = next != nullptr;
     }
   }
   big_bwd_unpack_kernel<<<particles, NT, 0, s>>>(g, w);
@@ -618,7 +871,8 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
   big_bwd_finish_kernel<<<env_blocks, NT, 0, s>>>(g, w, B);
   UNIDOM_LAUNCHED();
 #undef UNIDOM_SEGMENT
-#undef UNIDOM_SUBSTEP
+#undef UNIDOM_GRAD_SUBSTEP
+#undef UNIDOM_SORTED_P2G
 #undef UNIDOM_LAUNCHED
   return (int)cudaSuccess;
 }

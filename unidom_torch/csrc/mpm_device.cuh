@@ -6,8 +6,10 @@
 // jax.grad's tie conventions, the Jacobi SVD of ops/svd3.py, the materials'
 // return maps and the stress (chain_fwd), the quadratic B-spline stencil
 // with out-of-range nodes dropped (node_cell), the grid ops of one cell
-// (grid_op), and each particle's share of a substep: the clearing of its
-// stencil, its P2G and its G2P with advection.
+// (grid_op), the scatter of a node's shares (one atomic each, or summed
+// over a warp's lanes that share a bin first), and each particle's share of
+// a substep: the clearing of its stencil, its P2G and its G2P with
+// advection; then the adjoints (below).
 
 #pragma once
 
@@ -304,6 +306,10 @@ __device__ __forceinline__ int node_cell(const Stencil& st, int a, int b, int c,
 
 // ------------------------------------------------------------------ grid ops
 
+// a node's coordinate: the float32 product of its index and dx, never fused
+// into a later add, as the plain step (and unidom_tpu's) computes it
+__device__ __forceinline__ float node_pos(float idx, float dx) { return __fmul_rn(idx, dx); }
+
 // SDF collision of primitive pr with the velocity v (in place) of the grid
 // node at gp: softness-weighted influence, the collider's velocity and
 // Coulomb friction on the tangential part
@@ -351,7 +357,7 @@ __device__ __forceinline__ float4 grid_op_value(int cell, float4 gv, const Prim*
 
   int ci = cell / (g.ry * g.rz), cj = (cell / g.rz) % g.ry, ck = cell % g.rz;
   float idx[3] = {(float)ci, (float)cj, (float)ck};
-  float gp[3] = {idx[0] * g.dx, idx[1] * g.dx, idx[2] * g.dx};
+  float gp[3] = {node_pos(idx[0], g.dx), node_pos(idx[1], g.dx), node_pos(idx[2], g.dx)};
 
   for (int ip = 0; ip < g.n_prim; ++ip) {
     const Prim& pr = prims[ip];
@@ -563,6 +569,102 @@ __device__ __forceinline__ float4 grid_load(const GridAcc* grid, int cell) {
   return make_float4((float)m[0], (float)m[1], (float)m[2], (float)m[3]);
 }
 
+// ---------------------------------------------------- the scatter of one node
+// P2G and G2P's adjoint hand each stencil node's share of a particle to a
+// scatter: node(cell, 4 values) adds momentum xyz and mass and marks the
+// cell (the first mark appends it to the touched list), node3(cell, 3
+// values) adds a cotangent of momentum. cell < 0 is a node outside the grid,
+// whose values are 0. Every lane of a warp calls them for every node.
+//
+// AtomicScatter adds each particle's share by an atomic (K2; K3 in a
+// rollout). WarpScatter is for particles sorted by bin (the stencil's base
+// node, bin_key): lanes of one bin share all 27 nodes, so each node's
+// shares are summed over the bin's lanes of the warp first, in double, by a
+// segmented reduction of shuffles, and the bin's first lane adds the sums
+// by one double atomic each (K3 with a gradient). Double sums keep the
+// result independent of the order at float32's precision.
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int DEAD_KEY = -2;  // a lane without a particle
+
+// The bin of a stencil: its base node (i, j, k), each in [-2, r - 1] (else
+// no node of the stencil lies in the grid and the bin is the last one,
+// n_bins(g) - 1), numbered over (rx + 2) x (ry + 2) x (rz + 2).
+__device__ __forceinline__ int n_bins(const Args& g) {
+  return (g.rx + 2) * (g.ry + 2) * (g.rz + 2) + 1;
+}
+__device__ __forceinline__ int bin_key(const Stencil& st, const Args& g) {
+  const float i = st.base[0], j = st.base[1], k = st.base[2];
+  if (!(i >= -2.f && i < (float)g.rx && j >= -2.f && j < (float)g.ry && k >= -2.f &&
+        k < (float)g.rz))
+    return n_bins(g) - 1;
+  return (((int)i + 2) * (g.ry + 2) + ((int)j + 2)) * (g.rz + 2) + ((int)k + 2);
+}
+
+template <class G>
+struct AtomicScatter {
+  G* grid;
+  int* mark;  // null: no marks (G2P's adjoint)
+  int* touched;
+  int* n_touched;
+  __device__ __forceinline__ void begin(const Stencil&, const Args&, bool) {}
+  __device__ __forceinline__ void node(int cell, const float (&v)[4]) {
+    if (cell < 0) return;
+    for (int k = 0; k < 4; ++k) grid_add(grid, cell, k, v[k]);
+    if (atomicCAS(mark + cell, 0, 1) == 0) touched[atomicAdd(n_touched, 1)] = cell;
+  }
+  __device__ __forceinline__ void node3(int cell, const float (&v)[3]) {
+    if (cell < 0) return;
+    for (int k = 0; k < 3; ++k) grid_add(grid, cell, k, v[k]);
+  }
+};
+
+struct WarpScatter {
+  GridAcc* grid;
+  int* mark;  // null: no marks (G2P's adjoint)
+  int* touched;
+  int* n_touched;
+  unsigned same;  // bit s: lane + 2^s holds the same bin
+  bool head;      // the bin's first lane in the warp
+  __device__ __forceinline__ void begin(const Stencil& st, const Args& g, bool live) {
+    const int key = live ? bin_key(st, g) : DEAD_KEY;
+    const int lane = threadIdx.x & 31;
+    same = 0;
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+      const int other = __shfl_down_sync(FULL_MASK, key, 1 << s);
+      if (lane + (1 << s) < 32 && other == key) same |= 1u << s;
+    }
+    const int up = __shfl_up_sync(FULL_MASK, key, 1);  // every lane shuffles
+    head = lane == 0 || up != key;
+  }
+  // each lane's values become the sum over its own and the later lanes of
+  // its bin; the head's, the bin's sum
+  template <int N>
+  __device__ __forceinline__ void reduce(double (&v)[N]) const {
+#pragma unroll
+    for (int s = 0; s < 5; ++s)
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const double o = __shfl_down_sync(FULL_MASK, v[k], 1 << s);
+        if (same & (1u << s)) v[k] += o;
+      }
+  }
+  __device__ __forceinline__ void node(int cell, const float (&v)[4]) {
+    double d[4] = {v[0], v[1], v[2], v[3]};
+    reduce(d);
+    if (!head || cell < 0) return;
+    for (int k = 0; k < 4; ++k) atomicAdd(grid[cell].m + k, d[k]);
+    if (atomicCAS(mark + cell, 0, 1) == 0) touched[atomicAdd(n_touched, 1)] = cell;
+  }
+  __device__ __forceinline__ void node3(int cell, const float (&v)[3]) {
+    double d[3] = {v[0], v[1], v[2]};
+    reduce(d);
+    if (!head || cell < 0) return;
+    for (int k = 0; k < 3; ++k) atomicAdd(grid[cell].m + k, d[k]);
+  }
+};
+
 // ------------------------------------------------------- one particle's phases
 // A substep, particle by particle: K2 loops over a block's particles, K3 runs
 // one thread per particle. Kernel launches or the caller's barriers separate
@@ -589,37 +691,41 @@ __device__ __forceinline__ void zero_stencil(const float* x, const Args& g, G* g
       }
 }
 
-// stress and P2G of particle p of the carry c; F_out (may be c itself) takes
-// F after the return map when not null; the first mark of a cell appends it
-// to touched, counted by n_touched
-template <class G>
+// stress and P2G of particle p of the carry c (stride P) through the scatter
+// s; F_out (may be c itself) takes F after the return map when not null. A
+// lane that is not live (no particle) hands s 0 at every node.
+template <class S>
 __device__ __forceinline__ void p2g_particle(const float* c, float* F_out, int P, int p,
-                                             const Args& g, int b, G* grid, int* mark,
-                                             int* touched, int* n_touched) {
+                                             bool live, const Args& g, int b, S& s) {
   Chain ch;
-  chain_fwd(c, P, p, g, b, ch);
-  if (F_out)
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j) F_out[(IF + 3 * i + j) * P + p] = ch.Ff[i][j];
   Stencil st;
-  stencil(ch.x, g.inv_dx, st);
+  if (live) {
+    chain_fwd(c, P, p, g, b, ch);
+    if (F_out)
+      for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j) F_out[(IF + 3 * i + j) * P + p] = ch.Ff[i][j];
+    stencil(ch.x, g.inv_dx, st);
+  }
+  s.begin(st, g, live);
 #pragma unroll
   for (int a = 0; a < 3; ++a)
 #pragma unroll
     for (int bb = 0; bb < 3; ++bb)
 #pragma unroll
       for (int cc = 0; cc < 3; ++cc) {
-        int cell = node_cell(st, a, bb, cc, g);
-        if (cell < 0) continue;
-        float w = st.w[0][a] * st.w[1][bb] * st.w[2][cc];
-        float dp[3] = {st.t[0][a] * g.dx, st.t[1][bb] * g.dx, st.t[2][cc] * g.dx};
-        for (int i = 0; i < 3; ++i) {
-          float mom = g.p_mass * ch.v[i] +
-                      (ch.aff[i][0] * dp[0] + ch.aff[i][1] * dp[1] + ch.aff[i][2] * dp[2]);
-          grid_add(grid, cell, i, w * mom);
+        const int cell = live ? node_cell(st, a, bb, cc, g) : -1;
+        float val[4] = {0.f, 0.f, 0.f, 0.f};
+        if (cell >= 0) {
+          float w = st.w[0][a] * st.w[1][bb] * st.w[2][cc];
+          float dp[3] = {st.t[0][a] * g.dx, st.t[1][bb] * g.dx, st.t[2][cc] * g.dx};
+          for (int i = 0; i < 3; ++i) {
+            float mom = g.p_mass * ch.v[i] +
+                        (ch.aff[i][0] * dp[0] + ch.aff[i][1] * dp[1] + ch.aff[i][2] * dp[2]);
+            val[i] = w * mom;
+          }
+          val[3] = w * g.p_mass;
         }
-        grid_add(grid, cell, 3, w * g.p_mass);
-        if (atomicCAS(mark + cell, 0, 1) == 0) touched[atomicAdd(n_touched, 1)] = cell;
+        s.node(cell, val);
       }
 }
 
@@ -688,6 +794,29 @@ constexpr int PA_P = 0, PA_Q = 3, PA_P1 = 7, PA_Q1 = 10, PA_VS = 14, PA_SIZE = 1
               PA_FRIC = 20, PA_SOFT = 21, NPA = 22;
 constexpr int ACC_GF = MAX_PRIM * NPA;  // the ground friction's, after the primitives'
 constexpr int N_ACC = ACC_GF + 1;
+
+// One thread's sums of the primitives' and the ground friction's cotangents
+// (grid_op_bwd's acc) over the touched cells it takes, in double; flush
+// sums each slot over the warp by shuffles and lane 0 adds it to out by
+// one atomic, where the cells of every thread would otherwise contend for
+// the same words one by one. Every lane of the warp calls flush.
+struct ThreadAcc {
+  double a[N_ACC];
+  __device__ __forceinline__ void zero(int n_prim) {
+    for (int k = 0; k < n_prim * NPA; ++k) a[k] = 0.0;
+    a[ACC_GF] = 0.0;
+  }
+  __device__ __forceinline__ void add(int k, double v) { a[k] += v; }
+  __device__ __forceinline__ void flush(int n_prim, double* out) const {
+    for (int k = 0; k <= n_prim * NPA; ++k) {
+      const int slot = k < n_prim * NPA ? k : ACC_GF;
+      double v = a[slot];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL_MASK, v, off);
+      if ((threadIdx.x & 31) == 0 && v != 0.0) atomicAdd(out + slot, v);
+    }
+  }
+};
 
 // d/dx of jnp.clip(x, lo, hi)
 __device__ __forceinline__ float clip_grad(float x, float lo, float hi) {
@@ -1074,7 +1203,7 @@ __device__ void grid_op_bwd(int cell, float4 pre, const D* dsum, float4* dout, c
   v[2] = v[2] + g.dt * g.gz;
   int ci = cell / (g.ry * g.rz), cj = (cell / g.rz) % g.ry, ck = cell % g.rz;
   float idx[3] = {(float)ci, (float)cj, (float)ck};
-  float gp[3] = {idx[0] * g.dx, idx[1] * g.dx, idx[2] * g.dx};
+  float gp[3] = {node_pos(idx[0], g.dx), node_pos(idx[1], g.dx), node_pos(idx[2], g.dx)};
   unsigned controlled = 0;
   float vin[MAX_PRIM][3];  // each primitive's input velocity (collision)
   for (int ip = 0; ip < g.n_prim; ++ip) {
@@ -1152,60 +1281,67 @@ __device__ void grid_op_bwd(int cell, float4 pre, const D* dsum, float4* dout, c
 }
 
 // Adjoint of G2P and advection for particle p: from the cotangents of the
-// substep's output (cot, in place) and the grid after the grid ops, scatter
-// the cotangent of each stencil node's velocity onto dgrid (float4 sums in
-// K2, double in K3) and leave the cotangents of the input's x (the G2P part)
-// and J in cot.
-template <class D>
+// substep's output (cot, in place) and the grid after the grid ops, hand the
+// cotangent of each stencil node's velocity to the scatter s (onto float4
+// sums in K2, double in K3) and leave the cotangents of the input's x (the
+// G2P part) and J in cot. A lane that is not live hands s 0 at every node.
+template <class S>
 __device__ __forceinline__ void g2p_adjoint_particle(const float* c, float* cot, int P, int p,
-                                                     const Args& g, const float4* grid,
-                                                     D* dgrid) {
-  const float s = 4.f * g.inv_dx;
-  float x[3] = {c[IX * P + p], c[(IX + 1) * P + p], c[(IX + 2) * P + p]};
-  const float J = c[IJ * P + p];
-  float nv[3], nC[3][3];
-  g2p_gather(x, grid, g, nv, nC);
+                                                     bool live, const Args& g,
+                                                     const float4* grid, S& s) {
+  const float sc = 4.f * g.inv_dx;
   float dnv[3], sdC[3][3], dx[3];
-  const float dJo = cot[IJ * P + p];
-  for (int i = 0; i < 3; ++i) {
-    dx[i] = cot[(IX + i) * P + p];
-    dnv[i] = cot[(IV + i) * P + p] + g.dt * dx[i];
-    for (int j = 0; j < 3; ++j) {
-      float d = cot[(IC + 3 * i + j) * P + p];
-      if (i == j) d += dJo * J * g.dt;
-      sdC[i][j] = s * d;  // the cotangent of the unscaled sum
-    }
-  }
-  cot[IJ * P + p] = dJo * (1.f + g.dt * (nC[0][0] + nC[1][1] + nC[2][2]));
   Stencil st;
-  stencil(x, g.inv_dx, st);
+  if (live) {
+    float x[3] = {c[IX * P + p], c[(IX + 1) * P + p], c[(IX + 2) * P + p]};
+    const float J = c[IJ * P + p];
+    float nv[3], nC[3][3];
+    g2p_gather(x, grid, g, nv, nC);
+    const float dJo = cot[IJ * P + p];
+    for (int i = 0; i < 3; ++i) {
+      dx[i] = cot[(IX + i) * P + p];
+      dnv[i] = cot[(IV + i) * P + p] + g.dt * dx[i];
+      for (int j = 0; j < 3; ++j) {
+        float d = cot[(IC + 3 * i + j) * P + p];
+        if (i == j) d += dJo * J * g.dt;
+        sdC[i][j] = sc * d;  // the cotangent of the unscaled sum
+      }
+    }
+    cot[IJ * P + p] = dJo * (1.f + g.dt * (nC[0][0] + nC[1][1] + nC[2][2]));
+    stencil(x, g.inv_dx, st);
+  }
+  s.begin(st, g, live);
 #pragma unroll
   for (int a = 0; a < 3; ++a)
 #pragma unroll
     for (int bb = 0; bb < 3; ++bb)
 #pragma unroll
       for (int cc = 0; cc < 3; ++cc) {
-        int cell = node_cell(st, a, bb, cc, g);
-        if (cell < 0) continue;
-        const float w0 = st.w[0][a], w1 = st.w[1][bb], w2 = st.w[2][cc];
-        const float w = w0 * w1 * w2;
-        const float t[3] = {st.t[0][a], st.t[1][bb], st.t[2][cc]};
-        const float wd[3] = {spline_grad(t[0]) * w1 * w2, w0 * spline_grad(t[1]) * w2,
-                             w0 * w1 * spline_grad(t[2])};
-        float4 gv4 = grid[cell];
-        const float gv[3] = {gv4.x, gv4.y, gv4.z};
-        float acc = 0.f;
-        for (int i = 0; i < 3; ++i) {
-          float ct = sdC[i][0] * t[0] + sdC[i][1] * t[1] + sdC[i][2] * t[2];
-          grid_add(dgrid, cell, i, w * dnv[i] + w * ct);
-          acc += gv[i] * (dnv[i] + ct);
+        const int cell = live ? node_cell(st, a, bb, cc, g) : -1;
+        float val[3] = {0.f, 0.f, 0.f};
+        if (cell >= 0) {
+          const float w0 = st.w[0][a], w1 = st.w[1][bb], w2 = st.w[2][cc];
+          const float w = w0 * w1 * w2;
+          const float t[3] = {st.t[0][a], st.t[1][bb], st.t[2][cc]};
+          const float wd[3] = {spline_grad(t[0]) * w1 * w2, w0 * spline_grad(t[1]) * w2,
+                               w0 * w1 * spline_grad(t[2])};
+          float4 gv4 = grid[cell];
+          const float gv[3] = {gv4.x, gv4.y, gv4.z};
+          float acc = 0.f;
+          for (int i = 0; i < 3; ++i) {
+            float ct = sdC[i][0] * t[0] + sdC[i][1] * t[1] + sdC[i][2] * t[2];
+            val[i] = w * dnv[i] + w * ct;
+            acc += gv[i] * (dnv[i] + ct);
+          }
+          for (int d = 0; d < 3; ++d) {
+            float cd = gv[0] * sdC[0][d] + gv[1] * sdC[1][d] + gv[2] * sdC[2][d];
+            dx[d] += -g.inv_dx * (wd[d] * acc + w * cd);
+          }
         }
-        for (int d = 0; d < 3; ++d) {
-          float cd = gv[0] * sdC[0][d] + gv[1] * sdC[1][d] + gv[2] * sdC[2][d];
-          dx[d] += -g.inv_dx * (wd[d] * acc + w * cd);
-        }
+        s.node3(cell, val);
       }
-  for (int i = 0; i < 3; ++i) cot[(IX + i) * P + p] = dx[i];
+  if (live)
+    for (int i = 0; i < 3; ++i) cot[(IX + i) * P + p] = dx[i];
 }
 
 // Adjoint of the stress and P2G for particle p: gathers the cotangents of
@@ -1380,18 +1516,17 @@ __device__ __forceinline__ void particle_adjoint_particle(const float* c, float*
   if (ch.mat == 3) acc[2 * P + p] += (double)dys;
 }
 
-// Adjoint of the primitives' forward kinematics at substep t, one thread
-// per env. rows are the env's frames ((steps + 1), n_prim, ROW); pacc holds
-// the substep's primitive cotangents of the grid ops (N_ACC); dpq (n_prim x
-// 7: position, rotation) holds the cotangent of frame t + 1 on entry and of
-// frame t on exit. Writes gvw's row t and, at t = 0, gframe (env b's rows).
-__device__ void fk_adjoint(const Args& g, int b, int t, const float* rows, const double* pacc,
-                           const float* dpos, const float* drot, float* gframe, float* gvw_all,
-                           float* dpq) {
+// Adjoint of primitive ip's forward kinematics at substep t, one thread.
+// rows are the env's frames ((steps + 1), n_prim, ROW); pa holds the
+// primitive's cotangents of the substep's grid ops (NPA); dpq (7: position,
+// rotation) holds the cotangent of frame t + 1 on entry and of frame t on
+// exit. Writes its row t of gvw and, at t = 0, its row of gframe (env b's).
+__device__ void fk_adjoint_prim(const Args& g, int b, int t, int ip, const float* rows,
+                                const double* pa, const float* dpos, const float* drot,
+                                float* gframe, float* gvw_all, float* dpq) {
   const int np = g.n_prim, steps = g.steps;
-  for (int ip = 0; ip < np; ++ip) {
-    const double* pa = pacc + ip * NPA;
-    float* dP = dpq + ip * 7;
+  {
+    float* dP = dpq;
     float* dQ = dP + 3;
     const float* fr = g.prim_frame + ((size_t)b * np + ip) * PRIM_FRAME;
     const float* r = rows + ((size_t)t * np + ip) * ROW;

@@ -19,8 +19,8 @@
 // K2-seg re-runs a segment of K substeps from its checkpoint with the same
 // device code and writes each substep's input. K2-bwd is the macro step's
 // adjoint under position control or SDF collision, written out stage by
-// stage: per substep, in reverse, it recomputes the forward up to the grid
-// ops from the substep's input, then takes the adjoints of G2P and
+// stage: per substep, in reverse, it rebuilds the grid after the grid ops
+// from what the segment's recompute recorded, then takes the adjoints of G2P and
 // advection (a scatter of the nodes' velocity cotangents with atomics, and
 // the weights' derivatives in x), of the grid ops per touched cell (with
 // collide's adjoint: the second derivative of the SDF for the normal), of
@@ -33,17 +33,33 @@
 // stencil nodes; counted in chip_smoke.py, FLOP_MPM_PARTICLE) and 10,071
 // for the forward and its adjoint (FLOP_MPM_BWD_PARTICLE); whip_rope at 1024
 // envs is about 18 and 51 GFLOP per macro step against tens of MB of state,
-// history and cotangents. This first design does not reach that: only 67 of
-// a block's 128 threads hold a whip_rope particle, each runs its particle's
-// serial chain alone, and the barriers of each substep wait on the slowest.
+// history and cotangents. Each thread runs its particles' serial chains and
+// every phase of a substep waits at a barrier for the slowest thread, so
+// the time is set by the chain of one block (or cluster) when the batch
+// fills the card, and by how much of the card the batch reaches when not.
 //
-// Design (right and simple first):
-//   - One thread block per env, 128 threads, the substep loop inside the
-//     kernel. The particle state (25 floats each) lives in shared memory; a
-//     thread owns particles tid, tid + 128, ... and keeps each one's SVD in
-//     registers while it works on it. K2-bwd also keeps the state's
-//     cotangent in shared memory, with the Lame parameters' and yield
-//     stress's per particle in double.
+// Design:
+//   - K2-fwd and K2-seg: one thread block per env, 128 threads, the substep
+//     loop inside the kernel. The particle state (25 floats each) lives in
+//     shared memory; a thread owns particles tid, tid + 128, ... and keeps
+//     each one's SVD in registers while it works on it.
+//   - K2-bwd: a thread-block cluster per env (launch_config in
+//     ops/cuda/mpm_kernel.py picks its size from the batch and the card's
+//     132 SMs: shape_rope's 64 envs take 2 CTAs each, one wave; whip_rope's
+//     1024 envs fill the card with a cluster of 1). The env's particles are
+//     split into the cluster's CTAs, ceil(P / cluster) each, up to one
+//     particle per thread; each CTA keeps its particles' carry, the carry's
+//     cotangent and the Lame parameters' and yield stress's cotangents (in
+//     double) in its own shared memory, its own copy of the primitives'
+//     frames and its own touched-cell list. Phases that cross particles
+//     (through the grid) are separated by cluster.sync() (with a cluster
+//     of 1, __syncthreads()). Each CTA sums the primitives' and the ground
+//     friction's cotangents of its cells (each thread in double over its
+//     cells, then over the warp by shuffles, then one shared-memory atomic
+//     per warp and slot); the cluster's first CTA reads its siblings' sums
+//     through distributed shared memory (map_shared_rank) and runs the
+//     forward kinematics' adjoint, one thread per primitive, on threads that
+//     hold no particle where the block has such threads.
 //   - The TPU kernel's dense tensor-product transfers (a TPU has no fast
 //     scatter) become a scatter: each particle's 27 stencil nodes, base =
 //     floor(x inv_dx - 0.5), offsets 0..2, the same nodes and weights as the
@@ -54,18 +70,26 @@
 //     block's 227 KB of shared memory). Each substep first zeroes the
 //     stencil nodes of every particle (so nothing needs zeroing between
 //     launches), then P2G adds with atomics and marks each node; the first
-//     mark of a node appends it to a shared-memory list of touched cells,
-//     and the grid ops run on that list only. G2P reads the same nodes, so
-//     cells no stencil touched are never read. K2-bwd adds a grid of
-//     cotangents (zeroed the same way) and keeps each touched cell's momentum
-//     and mass before the grid ops, by its slot in the list.
+//     mark of a node appends it to the touched list of the CTA that made
+//     it, and the grid ops run on those lists only. G2P reads the same
+//     nodes, so cells no stencil touched are never read. K2-bwd adds a grid
+//     of cotangents (zeroed on each substep's recorded cells, below) and
+//     keeps each touched cell's momentum and mass before the grid ops, by
+//     its CTA and slot.
 //   - The primitives' frames of all substeps (steps + 1 rows) are computed
-//     once by one thread into shared memory; each substep reads its two.
+//     once per block by one thread into shared memory; each substep reads
+//     its two.
 //   - The history: K2-fwd writes the input of substeps 0, K, 2K, ...; with
 //     K = 1 that is every substep's input and K2-bwd reads it directly;
 //     with K > 1 K2-bwd runs K2-seg as the first phase of each segment,
 //     into a per-env buffer of K carries in device memory, then walks the
 //     segment in reverse. The wrapper picks K (ops/cuda/mpm_kernel.py).
+//     As K2-seg runs a substep inside K2-bwd it records, per CTA, the
+//     touched cells and their momentum and mass before the grid ops (and a
+//     last P2G and grid ops record the segment's last carry, and with K = 1
+//     the one carry); the reversed substep rebuilds the grid after the grid
+//     ops on those cells, so it runs no P2G, no SVD and no stencil zeroing
+//     of its own.
 //   - IEEE division and square roots; atomics add in a varying order, so
 //     results are not bitwise reproducible from run to run, and K = 1 and
 //     K > 1 give slightly different gradients.
@@ -73,14 +97,19 @@
 //     forward and adjoint (the arguments, SVD and its adjoint, return maps
 //     and stress, stencil, grid ops and collide's adjoint, SDFs, forward
 //     kinematics), lives in mpm_device.cuh, shared with K3
-//     (mpm_big_step.cu); the block-level loops and barriers are here. The
-//     primitives' cotangents of a substep sum in shared memory in double.
+//     (mpm_big_step.cu); the block-level loops and barriers are here.
+
+#include <cooperative_groups.h>
 
 #include "mpm_device.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int NT = 128;  // threads per block
+constexpr int NT = 128;           // K2-fwd's and K2-seg's threads per block
+constexpr int BWD_MAX_NT = 320;   // K2-bwd's most threads per CTA (its register budget)
+constexpr int MAX_CLUSTER = 8;    // the portable cluster size
 
 // What K2-bwd reads and writes beside the forward's Args.
 struct BwdArgs {
@@ -93,18 +122,39 @@ struct BwdArgs {
   float* gvw;                           // (B, n_prim, steps, 6)
   float* seg;                           // (B, K, N_COMP, P): a segment's carries when K > 1
   float4* dgrid;                        // (B, cells): cotangent of momentum xyz and mass
-  float4* pre;                          // (B, list_cap): each touched cell before the grid ops
-  int list_cap;
+  // a segment's grids (Record), per env and CTA K slots of list_cap cells
+  float4* pre;                          // (B, cluster, K, list_cap): momentum and mass before the grid ops
+  int* rec_cells;                       // (B, cluster, K, list_cap): the touched cells
+  int* rec_n;                           // (B, cluster, K): how many
+  int list_cap;                         // slots of a CTA's touched list
+  int cluster;                          // CTAs per env
+  int per_cta;                          // particles per CTA: ceil(P / cluster)
+};
+
+// the barrier between phases that cross particles
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+struct ClusterSync {
+  int cs;
+  __device__ __forceinline__ void operator()() const {
+    if (cs > 1)
+      cg::this_cluster().sync();
+    else
+      __syncthreads();
+  }
 };
 
 // ------------------------------------------------------------- substep phases
 // Each runs on every thread of the block, a thread taking particles (or
 // touched cells) tid, tid + blockDim.x, ...; the caller puts the barriers.
+// A block's carry holds n particles at stride P (component c of particle p
+// at c * P + p).
 
 // zero the grid (and its cotangent) under every particle's stencil
-__device__ void zero_stencils(const float* c, int P, const Args& g, float4* grid, int* mark,
-                              float4* dgrid) {
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
+__device__ void zero_stencils(const float* c, int n, int P, const Args& g, float4* grid,
+                              int* mark, float4* dgrid) {
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
     float x[3] = {c[IX * P + p], c[(IX + 1) * P + p], c[(IX + 2) * P + p]};
     zero_stencil(x, g, grid, mark, dgrid);
   }
@@ -112,10 +162,10 @@ __device__ void zero_stencils(const float* c, int P, const Args& g, float4* grid
 
 // stress and P2G from the carry c; F_out (may be c itself) takes F after the
 // return map when not null; the first mark of a cell appends it to touched
-__device__ void p2g(const float* c, float* F_out, int P, const Args& g, int b, float4* grid,
-                    int* mark, int* touched, int* n_touched) {
-  for (int p = threadIdx.x; p < P; p += blockDim.x)
-    p2g_particle(c, F_out, P, p, g, b, grid, mark, touched, n_touched);
+__device__ void p2g(const float* c, float* F_out, int n, int P, const Args& g, int b,
+                    float4* grid, int* mark, int* touched, int* n_touched) {
+  AtomicScatter<float4> s{grid, mark, touched, n_touched};
+  for (int p = threadIdx.x; p < n; p += blockDim.x) p2g_particle(c, F_out, P, p, true, g, b, s);
 }
 
 // the grid ops on the touched cells; pre, when not null, keeps each cell's
@@ -127,34 +177,63 @@ __device__ void grid_ops(const int* touched, int n, float4* grid, const Prim* pr
 }
 
 // G2P and advection of the carry ps, in place
-__device__ void g2p_advect(float* ps, int P, const Args& g, const float4* grid) {
-  for (int p = threadIdx.x; p < P; p += blockDim.x) g2p_advect_particle(ps, P, p, g, grid);
+__device__ void g2p_advect(float* ps, int n, int P, const Args& g, const float4* grid) {
+  for (int p = threadIdx.x; p < n; p += blockDim.x) g2p_advect_particle(ps, P, p, g, grid);
 }
 
-// One forward substep f of the carry ps (shared memory), in place. Thread 0
+// What the grid held in one substep, for K2-bwd's reversed substep: the
+// touched cells of one CTA (count, cells) and each one's momentum and mass
+// before the grid ops.
+struct Record {
+  int* n;
+  int* cells;
+  float4* pre;
+  __device__ __forceinline__ Record slot(size_t j, int cap) const {
+    return {n + j, cells + j * cap, pre + j * cap};
+  }
+};
+
+// The head of a forward substep f of the carry ps (shared memory, n
+// particles at stride P): its stencils zeroed, P2G (F after the return map
+// into F_out when not null) and the grid ops; with rec.n, the CTA's touched
+// cells and their momentum and mass before the grid ops into rec. Thread 0
 // loads the primitives of substep f from the rows first.
-__device__ void substep_fwd(float* ps, int f, const Args& g, int b, const float* rows,
-                            Prim* prims, float4* grid, int* mark, int* touched, int* n_touched,
-                            float gf) {
-  const int P = g.P;
+template <class Sync>
+__device__ void substep_head(float* ps, float* F_out, int n, int P, int f, const Args& g, int b,
+                             const float* rows, Prim* prims, float4* grid, int* mark,
+                             int* touched, int* n_touched, float gf, Sync sync, Record rec) {
   if (threadIdx.x == 0) {
     load_prims(g, b, f, rows, prims);
     *n_touched = 0;
   }
-  zero_stencils(ps, P, g, grid, mark, nullptr);
-  __syncthreads();
-  p2g(ps, ps, P, g, b, grid, mark, touched, n_touched);
-  __syncthreads();
-  grid_ops(touched, *n_touched, grid, prims, gf, g, nullptr);
-  __syncthreads();
-  g2p_advect(ps, P, g, grid);
-  __syncthreads();
+  zero_stencils(ps, n, P, g, grid, mark, nullptr);
+  sync();
+  p2g(ps, F_out, n, P, g, b, grid, mark, touched, n_touched);
+  sync();
+  const int cells = *n_touched;
+  grid_ops(touched, cells, grid, prims, gf, g, rec.pre);
+  if (rec.n) {
+    for (int i = threadIdx.x; i < cells; i += blockDim.x) rec.cells[i] = touched[i];
+    if (threadIdx.x == 0) *rec.n = cells;
+  }
+  sync();
 }
 
-// copy a carry of N_COMP x P floats, each thread its own particles
-__device__ __forceinline__ void copy_carry(const float* src, float* dst, int P) {
-  for (int p = threadIdx.x; p < P; p += blockDim.x)
-    for (int c = 0; c < N_COMP; ++c) dst[c * P + p] = src[c * P + p];
+// One forward substep f of the carry ps, in place (recorded as above).
+template <class Sync>
+__device__ void substep_fwd(float* ps, int n, int P, int f, const Args& g, int b,
+                            const float* rows, Prim* prims, float4* grid, int* mark, int* touched,
+                            int* n_touched, float gf, Sync sync, Record rec = {}) {
+  substep_head(ps, ps, n, P, f, g, b, rows, prims, grid, mark, touched, n_touched, gf, sync, rec);
+  g2p_advect(ps, n, P, g, grid);
+  sync();
+}
+
+// copy n particles of a carry from src (stride Ps) to dst (stride Pd), each
+// thread its own particles
+__device__ __forceinline__ void copy_carry(const float* src, int Ps, float* dst, int Pd, int n) {
+  for (int p = threadIdx.x; p < n; p += blockDim.x)
+    for (int c = 0; c < N_COMP; ++c) dst[c * Pd + p] = src[c * Ps + p];
 }
 
 // ------------------------------------------------------------------ K2-fwd
@@ -192,8 +271,9 @@ __global__ void __launch_bounds__(NT) mpm_step_fwd_kernel(Args g) {
   const int n_ckpt = (steps + g.K - 1) / g.K;
   for (int f = 0; f < steps; ++f) {
     if (g.hist && f % g.K == 0)
-      copy_carry(ps, g.hist + ((size_t)b * n_ckpt + f / g.K) * N_COMP * P, P);
-    substep_fwd(ps, f, g, b, rows, prims, grid, mark, touched, &n_touched, gf);
+      copy_carry(ps, P, g.hist + ((size_t)b * n_ckpt + f / g.K) * N_COMP * P, P, P);
+    substep_fwd(ps, P, P, f, g, b, rows, prims, grid, mark, touched, &n_touched, gf,
+                BlockSync{});
   }
 
   for (int p = tid; p < P; p += nt) {
@@ -221,19 +301,27 @@ __global__ void __launch_bounds__(NT) mpm_step_fwd_kernel(Args g) {
 // ------------------------------------------------------------------ K2-seg
 // Segment s of a macro step: from checkpoint s of the history, re-run the
 // segment's substeps with K2-fwd's device code and write each substep's
-// input carry, L = min(K, steps - s K) of them, to out (L, N_COMP, P).
+// input carry, L = min(K, steps - s K) of them, to out (L, N_COMP, P). The
+// block holds particles p0 .. p0 + n - 1 of the env, at stride Ps in ps, and
+// runs the substeps with the barrier sync (g's per-particle inputs start at
+// particle p0); with rec.n, substep j's grid is recorded in rec's slot j
+// (cap cells each).
 
-__device__ void seg_recompute(const Args& g, int b, int s, float* out, float* ps,
-                              const float* rows, Prim* prims, float4* grid, int* mark,
-                              int* touched, int* n_touched, float gf) {
+template <class Sync>
+__device__ void seg_recompute(const Args& g, int b, int s, float* out, float* ps, int n, int Ps,
+                              int p0, const float* rows, Prim* prims, float4* grid, int* mark,
+                              int* touched, int* n_touched, float gf, Sync sync,
+                              Record rec = {}, int cap = 0) {
   const int P = g.P, t0 = s * g.K;
   const int L = min(g.K, g.steps - t0);
   const int n_ckpt = (g.steps + g.K - 1) / g.K;
-  copy_carry(g.hist + ((size_t)b * n_ckpt + s) * N_COMP * P, ps, P);
+  copy_carry(g.hist + ((size_t)b * n_ckpt + s) * N_COMP * P + p0, P, ps, Ps, n);
   __syncthreads();
   for (int j = 0; j < L; ++j) {
-    copy_carry(ps, out + (size_t)j * N_COMP * P, P);
-    if (j + 1 < L) substep_fwd(ps, t0 + j, g, b, rows, prims, grid, mark, touched, n_touched, gf);
+    copy_carry(ps, Ps, out + (size_t)j * N_COMP * P + p0, P, n);
+    if (j + 1 < L)
+      substep_fwd(ps, n, Ps, t0 + j, g, b, rows, prims, grid, mark, touched, n_touched, gf, sync,
+                  rec.n ? rec.slot(j, cap) : rec);
   }
   __syncthreads();
 }
@@ -251,9 +339,9 @@ __global__ void __launch_bounds__(NT) mpm_step_seg_kernel(Args g, int s, float* 
   const int L = min(g.K, g.steps - s * g.K);
   if (threadIdx.x == 0) fk_rows(g, b, rows);
   __syncthreads();
-  seg_recompute(g, b, s, out + (size_t)b * L * N_COMP * P, ps, rows, prims,
+  seg_recompute(g, b, s, out + (size_t)b * L * N_COMP * P, ps, P, P, 0, rows, prims,
                 g.grid + (size_t)b * cells, g.mark + (size_t)b * cells, touched, &n_touched,
-                g.ground_friction[(size_t)b * g.gf_sb]);
+                g.ground_friction[(size_t)b * g.gf_sb], BlockSync{});
 }
 
 // ------------------------------------------------------------------ K2-bwd
@@ -261,131 +349,178 @@ __global__ void __launch_bounds__(NT) mpm_step_seg_kernel(Args g, int s, float* 
 // and per-cell adjoints of mpm_device.cuh. Ties follow autograd on the plain
 // step: max, min and clip give 1/2 to each side.
 
-// the primitives' and the ground friction's cotangents, summed in the
-// block's shared memory in double
-struct SharedAcc {
-  double* a;
-  __device__ __forceinline__ void add(int k, double v) {
-    if (v != 0.0) atomicAdd(a + k, v);
-  }
-};
-
-__global__ void __launch_bounds__(NT) mpm_step_bwd_kernel(Args g, BwdArgs a) {
+__global__ void __launch_bounds__(BWD_MAX_NT) mpm_step_bwd_kernel(Args g, BwdArgs a) {
   extern __shared__ float smem[];
   __shared__ Prim prims[MAX_PRIM];
   __shared__ int n_touched;
-  __shared__ double pacc[N_ACC];
+  __shared__ double pacc[N_ACC];  // this CTA's sums of the primitives' and gf's cotangents
   __shared__ float dpq[MAX_PRIM * 7];
+  __shared__ double part[3];      // this CTA's sums of the mu, lamda and ys cotangents
 
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int P = g.P, steps = g.steps, K = g.K, np = g.n_prim;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = a.cluster, rank = cs > 1 ? (int)cluster.block_rank() : 0;
+  const int b = blockIdx.x / cs, tid = threadIdx.x, nt = blockDim.x;
+  const int P = g.P, steps = g.steps, K = g.K, np = g.n_prim, Pc = a.per_cta;
+  const int p0 = rank * Pc, n = max(0, min(Pc, P - p0));  // this CTA's particles
+  const ClusterSync sync{cs};
   const size_t cells = (size_t)g.rx * g.ry * g.rz;
-  float* ps = smem;                                   // N_COMP * P: a segment's carry
-  float* cot = ps + (size_t)N_COMP * P;               // N_COMP * P: the carry's cotangent
-  float* rows = cot + (size_t)N_COMP * P;             // (steps + 1) * n_prim * ROW
+  // the per-particle inputs from this CTA's first particle on
+  Args gl = g;
+  gl.material = g.material + p0;
+  gl.hardness = g.hardness + p0;
+  gl.mu = g.mu + (size_t)p0 * g.mu_sp;
+  gl.lamda = g.lamda + (size_t)p0 * g.la_sp;
+  gl.ys = g.ys + (size_t)p0 * g.ys_sp;
+  float* ps = smem;                                   // N_COMP * Pc: the substep's carry
+  float* cot = ps + (size_t)N_COMP * Pc;              // N_COMP * Pc: the carry's cotangent
+  float* rows = cot + (size_t)N_COMP * Pc;            // (steps + 1) * n_prim * ROW
   int* touched = (int*)(rows + (size_t)(steps + 1) * np * ROW);  // list capacity
-  // 3 * P doubles: mu, lamda, yield stress, 8-byte aligned after the list
+  // 3 * Pc doubles: mu, lamda, yield stress, 8-byte aligned after the list
   double* acc = (double*)(((size_t)(touched + a.list_cap) + 7) & ~(size_t)7);
   float4* grid = g.grid + (size_t)b * cells;
   int* mark = g.mark + (size_t)b * cells;
   float4* dgrid = a.dgrid + (size_t)b * cells;
-  float4* pre = a.pre + (size_t)b * a.list_cap;
+  const size_t cta = (size_t)b * cs + rank;
+  const Record rec{a.rec_n + cta * K, a.rec_cells + cta * K * a.list_cap,
+                   a.pre + cta * K * a.list_cap};
   const float gf = g.ground_friction[(size_t)b * g.gf_sb];
-  SharedAcc sacc{pacc};
+  // the forward kinematics' adjoint: primitive ip on thread nt - 1 - ip of
+  // the first CTA (the threads past this CTA's particles, where there are)
+  const int fk_ip = rank == 0 ? nt - 1 - tid : -1;
 
-  for (int p = tid; p < P; p += nt) {
-    size_t o = (size_t)b * P + p;
+  for (int p = tid; p < n; p += nt) {
+    size_t o = (size_t)b * P + p0 + p;
     for (int d = 0; d < 3; ++d) {
-      cot[(IX + d) * P + p] = a.dx[o * 3 + d];
-      cot[(IV + d) * P + p] = a.dv[o * 3 + d];
+      cot[(IX + d) * Pc + p] = a.dx[o * 3 + d];
+      cot[(IV + d) * Pc + p] = a.dv[o * 3 + d];
     }
     for (int e = 0; e < 9; ++e) {
-      cot[(IC + e) * P + p] = a.dC[o * 9 + e];
-      cot[(IF + e) * P + p] = a.dF[o * 9 + e];
+      cot[(IC + e) * Pc + p] = a.dC[o * 9 + e];
+      cot[(IF + e) * Pc + p] = a.dF[o * 9 + e];
     }
-    cot[IJ * P + p] = a.dJ[o];
-    acc[p] = acc[P + p] = acc[2 * P + p] = 0.0;
+    cot[IJ * Pc + p] = a.dJ[o];
+    acc[p] = acc[Pc + p] = acc[2 * Pc + p] = 0.0;
   }
   for (int k = tid; k < N_ACC; k += nt) pacc[k] = 0.0;
-  if (tid == 0) {
-    fk_rows(g, b, rows);
+  if (tid == 0) fk_rows(g, b, rows);
+  if (fk_ip >= 0 && fk_ip < np) {
     // frame steps is output twice: row steps and, by copy_frame, row 0
-    for (int ip = 0; ip < np; ++ip) {
-      const size_t row = ((size_t)b * np + ip) * (steps + 1);
-      for (int d = 0; d < 3; ++d)
-        dpq[ip * 7 + d] = a.dpos[(row + steps) * 3 + d] + a.dpos[row * 3 + d];
-      for (int d = 0; d < 4; ++d)
-        dpq[ip * 7 + 3 + d] = a.drot[(row + steps) * 4 + d] + a.drot[row * 4 + d];
-    }
+    const size_t row = ((size_t)b * np + fk_ip) * (steps + 1);
+    for (int d = 0; d < 3; ++d)
+      dpq[fk_ip * 7 + d] = a.dpos[(row + steps) * 3 + d] + a.dpos[row * 3 + d];
+    for (int d = 0; d < 4; ++d)
+      dpq[fk_ip * 7 + 3 + d] = a.drot[(row + steps) * 4 + d] + a.drot[row * 4 + d];
   }
   __syncthreads();
 
   const int n_seg = (steps + K - 1) / K;
   for (int s = n_seg - 1; s >= 0; --s) {
     const int t0 = s * K, L = min(K, steps - t0);
-    const float* base;  // the segment's L input carries, (L, N_COMP, P)
+    // the segment's L input carries, (L, N_COMP, P), and each substep's
+    // grid in rec: K2-seg records substeps t0 .. t0 + L - 2 as it runs them
+    // (K > 1), the head of substep t0 + L - 1 the last
+    const float* base;
     if (K == 1) {
       base = g.hist + ((size_t)b * n_seg + s) * N_COMP * P;
+      copy_carry(base + p0, P, ps, Pc, n);
+      __syncthreads();
     } else {  // K2-seg, as a phase of this launch
       float* out = a.seg + (size_t)b * K * N_COMP * P;
-      seg_recompute(g, b, s, out, ps, rows, prims, grid, mark, touched, &n_touched, gf);
+      seg_recompute(gl, b, s, out, ps, n, Pc, p0, rows, prims, grid, mark, touched, &n_touched,
+                    gf, sync, rec, a.list_cap);
       base = out;
     }
+    substep_head(ps, nullptr, n, Pc, t0 + L - 1, gl, b, rows, prims, grid, mark, touched,
+                 &n_touched, gf, sync, rec.slot(L - 1, a.list_cap));
     for (int t = t0 + L - 1; t >= t0; --t) {
-      const float* c = base + (size_t)(t - t0) * N_COMP * P;
-      // recompute the substep up to the grid ops
-      if (tid == 0) {
-        load_prims(g, b, t, rows, prims);
-        n_touched = 0;
-      }
+      const Record r = rec.slot(t - t0, a.list_cap);
+      // this CTA's particles of the substep's input carry into shared
+      // memory, and its recorded cells' grid after the grid ops and their
+      // cotangent's zero
+      copy_carry(base + (size_t)(t - t0) * N_COMP * P + p0, P, ps, Pc, n);
+      if (tid == 0) load_prims(g, b, t, rows, prims);
       for (int k = tid; k < MAX_PRIM * NPA; k += nt)
         if (k % NPA < PA_SIZE) pacc[k] = 0.0;  // the substep's; size and on sum over all
-      zero_stencils(c, P, g, grid, mark, dgrid);
       __syncthreads();
-      p2g(c, nullptr, P, g, b, grid, mark, touched, &n_touched);
-      __syncthreads();
-      const int n = n_touched;
-      grid_ops(touched, n, grid, prims, gf, g, pre);
-      __syncthreads();
+      const int n_cells = *r.n;
+      for (int i = tid; i < n_cells; i += nt) {
+        const int cell = r.cells[i];
+        grid[cell] = grid_op_value(cell, r.pre[i], prims, gf, gl);
+        dgrid[cell] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      sync();
       // then each stage's adjoint in reverse
-      for (int p = tid; p < P; p += nt) g2p_adjoint_particle(c, cot, P, p, g, grid, dgrid);
-      __syncthreads();
-      for (int i = tid; i < n; i += nt)
-        grid_op_bwd(touched[i], pre[i], dgrid, dgrid, prims, gf, g, sacc);
-      __syncthreads();
-      for (int p = tid; p < P; p += nt) particle_adjoint_particle(c, cot, acc, P, p, g, b, dgrid);
-      if (tid == 0) fk_adjoint(g, b, t, rows, pacc, a.dpos, a.drot, a.gframe, a.gvw, dpq);
-      __syncthreads();
+      {
+        AtomicScatter<float4> scat{dgrid, nullptr, nullptr, nullptr};
+        for (int p = tid; p < n; p += nt)
+          g2p_adjoint_particle(ps, cot, Pc, p, true, gl, grid, scat);
+      }
+      sync();
+      {
+        ThreadAcc tacc;
+        tacc.zero(np);
+        for (int i = tid; i < n_cells; i += nt)
+          grid_op_bwd(r.cells[i], r.pre[i], dgrid, dgrid, prims, gf, gl, tacc);
+        tacc.flush(np, pacc);
+      }
+      sync();
+      for (int p = tid; p < n; p += nt) particle_adjoint_particle(ps, cot, acc, Pc, p, gl, b, dgrid);
+      if (fk_ip >= 0 && fk_ip < np) {
+        // the cluster's sums of primitive fk_ip's cotangents, CTA by CTA
+        double pa[NPA];
+        for (int k = 0; k < NPA; ++k) pa[k] = 0.0;
+        for (int r2 = 0; r2 < cs; ++r2) {
+          const double* rp = r2 == 0 ? pacc : cluster.map_shared_rank(pacc, r2);
+          for (int k = 0; k < NPA; ++k) pa[k] += rp[fk_ip * NPA + k];
+        }
+        fk_adjoint_prim(g, b, t, fk_ip, rows, pa, a.dpos, a.drot, a.gframe, a.gvw,
+                        dpq + fk_ip * 7);
+      }
+      sync();
     }
   }
 
-  for (int p = tid; p < P; p += nt) {
-    size_t o = (size_t)b * P + p;
+  for (int p = tid; p < n; p += nt) {
+    size_t o = (size_t)b * P + p0 + p;
     for (int d = 0; d < 3; ++d) {
-      a.gx[o * 3 + d] = cot[(IX + d) * P + p];
-      a.gv[o * 3 + d] = cot[(IV + d) * P + p];
+      a.gx[o * 3 + d] = cot[(IX + d) * Pc + p];
+      a.gv[o * 3 + d] = cot[(IV + d) * Pc + p];
     }
     for (int e = 0; e < 9; ++e) {
-      a.gC[o * 9 + e] = cot[(IC + e) * P + p];
-      a.gF[o * 9 + e] = cot[(IF + e) * P + p];
+      a.gC[o * 9 + e] = cot[(IC + e) * Pc + p];
+      a.gF[o * 9 + e] = cot[(IF + e) * Pc + p];
     }
-    a.gJ[o] = cot[IJ * P + p];
+    a.gJ[o] = cot[IJ * Pc + p];
     if (g.mu_sp) a.gmu[o] = (float)acc[p];
-    if (g.la_sp) a.gla[o] = (float)acc[P + p];
-    if (g.ys_sp) a.gys[o] = (float)acc[2 * P + p];
+    if (g.la_sp) a.gla[o] = (float)acc[Pc + p];
+    if (g.ys_sp) a.gys[o] = (float)acc[2 * Pc + p];
   }
   if (tid == 0) {
     double smu = 0.0, sla = 0.0, sys = 0.0;
-    for (int p = 0; p < P; ++p) {
+    for (int p = 0; p < n; ++p) {
       smu += acc[p];
-      sla += acc[P + p];
-      sys += acc[2 * P + p];
+      sla += acc[Pc + p];
+      sys += acc[2 * Pc + p];
     }
-    a.ggf[b] = (float)pacc[ACC_GF];
-    if (!g.mu_sp) a.gmu[b] = (float)smu;
-    if (!g.la_sp) a.gla[b] = (float)sla;
-    if (!g.ys_sp) a.gys[b] = (float)sys;
+    part[0] = smu;
+    part[1] = sla;
+    part[2] = sys;
   }
+  sync();
+  if (rank == 0 && tid == 0) {
+    double sums[3] = {0.0, 0.0, 0.0}, sgf = 0.0;
+    for (int r = 0; r < cs; ++r) {
+      const double* rpart = r == 0 ? part : cluster.map_shared_rank(part, r);
+      const double* rp = r == 0 ? pacc : cluster.map_shared_rank(pacc, r);
+      for (int k = 0; k < 3; ++k) sums[k] += rpart[k];
+      sgf += rp[ACC_GF];
+    }
+    a.ggf[b] = (float)sgf;
+    if (!g.mu_sp) a.gmu[b] = (float)sums[0];
+    if (!g.la_sp) a.gla[b] = (float)sums[1];
+    if (!g.ys_sp) a.gys[b] = (float)sums[2];
+  }
+  sync();  // every CTA's shared memory stays until the first has read it
 }
 
 int list_capacity(int P, int cells) {
@@ -393,8 +528,9 @@ int list_capacity(int P, int cells) {
   return (int)(cap < cells ? cap : cells);
 }
 
-// dynamic shared memory: the carry (and, backward, its cotangent), the
-// primitive rows, the touched list (and, backward, the three per-particle
+// dynamic shared memory of a block holding P particles (K2-bwd: of a CTA
+// holding per_cta): the carry (and, backward, its cotangent), the primitive
+// rows, the touched list (and, backward, the three per-particle
 // accumulators in double, with 8 bytes of alignment slack)
 size_t smem_bytes(int P, int cells, int steps, int n_prim, bool bwd) {
   size_t floats = (size_t)(bwd ? 2 * N_COMP : N_COMP) * P + (size_t)(steps + 1) * n_prim * ROW;
@@ -409,6 +545,23 @@ cudaError_t prepare_launch(Kernel kernel, size_t smem, int device) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// K2-bwd's launch: B clusters of `cluster` CTAs of `threads` threads
+cudaLaunchConfig_t bwd_config(int B, int cluster, int threads, size_t smem, cudaStream_t stream,
+                              cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 }  // namespace
 
 extern "C" {
@@ -419,9 +572,34 @@ size_t mpm_step_smem_bytes(int P, int cells, int steps, int n_prim, int bwd) {
   return smem_bytes(P, cells, steps, n_prim, bwd != 0);
 }
 
+// What the card makes of K2-bwd at `threads` threads, `smem` bytes of dynamic
+// shared memory and clusters of `cluster` CTAs: out = registers per thread,
+// local memory per thread (bytes), static shared memory (bytes), blocks per
+// SM (the occupancy API) and clusters the card holds at once. Returns a
+// cudaError_t.
+int mpm_step_bwd_kernel_info(int threads, long long smem, int cluster, int device, int* out) {
+  cudaError_t err = prepare_launch(mpm_step_bwd_kernel, (size_t)smem, device);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, mpm_step_bwd_kernel)) != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)attr.sharedSizeBytes;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], mpm_step_bwd_kernel, threads,
+                                                      (size_t)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute la;
+  cudaLaunchConfig_t cfg = bwd_config(cluster, cluster, threads, (size_t)smem, nullptr, &la);
+  return (int)cudaOccupancyMaxActiveClusters(&out[4], mpm_step_bwd_kernel, &cfg);
+}
+
 // The forward's arguments, shared by the three entry points. hist (B,
 // ceil(steps / K), N_COMP, P) receives the carry every K substeps (K2-fwd)
 // or holds it (K2-seg, K2-bwd); K2-fwd writes no history when it is null.
+// K2-bwd runs B clusters of `cluster` CTAs of `threads` threads, each CTA
+// holding per_cta particles and a touched list of list_cap slots in smem
+// bytes of dynamic shared memory (ops/cuda/mpm_kernel.py launch_config; it
+// must equal smem_bytes(per_cta, ...)).
 int mpm_step_launch(const float* x, const float* v, const float* C, const float* F, const float* J,
                  const float* mu, int mu_sb, int mu_sp, const float* lamda, int la_sb, int la_sp,
                  const float* ys, int ys_sb, int ys_sp, const float* ground_friction, int gf_sb,
@@ -432,7 +610,8 @@ int mpm_step_launch(const float* x, const float* v, const float* C, const float*
                  int n_grid, int use_pc, int sdf_kinds, float dt, float dx, float stress_c1,
                  float dx2, float p_mass, float gx, float gy, float gz, int device, void* stream,
                  int what, int segment, float* seg_out, const float* const* bwd_in,
-                 float* const* bwd_out, float* bwd_scratch, int list_cap) {
+                 float* const* bwd_out, float* bwd_scratch, int list_cap, int cluster,
+                 int threads, int per_cta, long long smem) {
   if (B < 1 || P < 1 || n_prim < 0 || n_prim > MAX_PRIM || steps < 1 || K < 1)
     return (int)cudaErrorInvalidValue;
   Args g;
@@ -453,16 +632,20 @@ int mpm_step_launch(const float* x, const float* v, const float* C, const float*
   const int cells = rx * ry * rz;
   cudaError_t err;
   if (what == 0) {  // K2-fwd
-    size_t smem = smem_bytes(P, cells, steps, n_prim, false);
-    if ((err = prepare_launch(mpm_step_fwd_kernel, smem, device)) != cudaSuccess) return (int)err;
-    mpm_step_fwd_kernel<<<B, NT, smem, (cudaStream_t)stream>>>(g);
+    size_t smem0 = smem_bytes(P, cells, steps, n_prim, false);
+    if ((err = prepare_launch(mpm_step_fwd_kernel, smem0, device)) != cudaSuccess) return (int)err;
+    mpm_step_fwd_kernel<<<B, NT, smem0, (cudaStream_t)stream>>>(g);
   } else if (what == 1) {  // K2-seg alone
     if (!hist || segment < 0 || segment * K >= steps) return (int)cudaErrorInvalidValue;
-    size_t smem = smem_bytes(P, cells, steps, n_prim, false);
-    if ((err = prepare_launch(mpm_step_seg_kernel, smem, device)) != cudaSuccess) return (int)err;
-    mpm_step_seg_kernel<<<B, NT, smem, (cudaStream_t)stream>>>(g, segment, seg_out);
+    size_t smem0 = smem_bytes(P, cells, steps, n_prim, false);
+    if ((err = prepare_launch(mpm_step_seg_kernel, smem0, device)) != cudaSuccess) return (int)err;
+    mpm_step_seg_kernel<<<B, NT, smem0, (cudaStream_t)stream>>>(g, segment, seg_out);
   } else {  // K2-bwd, with K2-seg as a phase of each segment when K > 1
-    if (!hist) return (int)cudaErrorInvalidValue;
+    if (!hist || cluster < 1 || cluster > MAX_CLUSTER || per_cta < 1 ||
+        (long)per_cta * cluster < P || threads < 32 || threads > BWD_MAX_NT || threads % 32 ||
+        threads < n_prim || list_cap < list_capacity(per_cta, cells) ||
+        (size_t)smem != smem_bytes(per_cta, cells, steps, n_prim, true) || (K > 1 && !seg_out))
+      return (int)cudaErrorInvalidValue;
     BwdArgs a;
     a.dx = bwd_in[0]; a.dv = bwd_in[1]; a.dC = bwd_in[2]; a.dF = bwd_in[3]; a.dJ = bwd_in[4];
     a.dpos = bwd_in[5]; a.drot = bwd_in[6];
@@ -470,13 +653,21 @@ int mpm_step_launch(const float* x, const float* v, const float* C, const float*
     a.gmu = bwd_out[5]; a.gla = bwd_out[6]; a.gys = bwd_out[7]; a.ggf = bwd_out[8];
     a.gframe = bwd_out[9]; a.gvw = bwd_out[10];
     a.seg = seg_out;
+    const size_t slots = (size_t)B * cluster * K;
     a.dgrid = (float4*)bwd_scratch;
-    a.pre = (float4*)(bwd_scratch + (size_t)B * cells * 4);
+    a.pre = a.dgrid + (size_t)B * cells;
+    a.rec_cells = (int*)(a.pre + slots * list_cap);
+    a.rec_n = a.rec_cells + slots * list_cap;
     a.list_cap = list_cap;
-    if (list_cap < list_capacity(P, cells) || (K > 1 && !seg_out)) return (int)cudaErrorInvalidValue;
-    size_t smem = smem_bytes(P, cells, steps, n_prim, true);
-    if ((err = prepare_launch(mpm_step_bwd_kernel, smem, device)) != cudaSuccess) return (int)err;
-    mpm_step_bwd_kernel<<<B, NT, smem, (cudaStream_t)stream>>>(g, a);
+    a.cluster = cluster;
+    a.per_cta = per_cta;
+    if ((err = prepare_launch(mpm_step_bwd_kernel, (size_t)smem, device)) != cudaSuccess)
+      return (int)err;
+    cudaLaunchAttribute la;
+    cudaLaunchConfig_t cfg = bwd_config(B, cluster, threads, (size_t)smem, (cudaStream_t)stream,
+                                        &la);
+    if ((err = cudaLaunchKernelEx(&cfg, mpm_step_bwd_kernel, g, a)) != cudaSuccess)
+      return (int)err;
   }
   return (int)cudaGetLastError();
 }

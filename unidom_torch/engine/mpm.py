@@ -416,7 +416,11 @@ class MPMSimulator:
         grid_v = torch.where(mass_mask[..., None], grid_v / safe_m[..., None], grid_v)
         grid_v = grid_v + dt * torch.tensor(conf.gravity, dtype=dtype, device=dev)
 
-        gidx = self.grid_idx_3d.to(dtype)
+        # the nodes' indices and positions in float32 whatever the state's
+        # dtype, as unidom_tpu's step computes them: a float64 step is then
+        # JAX's float64 step, and a grazing contact feels the rounding
+        # (tests/test_torch_mpm_big_grad.py)
+        gidx = self.grid_idx_3d.to(torch.float32)
         grid_pos = (gidx * dx).reshape(-1, 3)
         for i, (collide, pos_control) in enumerate(self._colliders):
             control = pos_control if self.use_position_control else collide

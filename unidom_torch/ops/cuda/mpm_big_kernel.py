@@ -23,7 +23,11 @@ K3-bwd. Nothing falls back to autograd through the plain step.
 Pallas kernel), ``mpm_big_step.bwd_launches`` those through K3-bwd,
 ``mpm_big_step.seg_launches`` the K3-seg phases that K3-bwd ran (plus calls
 of ``mpm_big_step_seg``), ``mpm_big_step.cuda_launches`` the CUDA launches
-inside all of them (4 x steps + 2 per K3-fwd macro step).
+inside all of them (4 x steps + 2 per K3-fwd macro step). With a gradient
+the kernels sort the particles by bin each substep and sum P2G's and G2P's
+adjoint's shares over a bin before their double atomics (see the source);
+``p2g_sums`` runs that P2G alone on a carry of the history, the grid that
+K3-bwd recomputes.
 
 The particle state crosses in the simulator's layout ((B, P, 3),
 (B, P, 3, 3), (B, P)); the kernels keep it per env in device memory as
@@ -60,7 +64,10 @@ ROW = 7  # a primitive's frame in the kernel's rows: position 3, rotation 4
 INT_MAX = 2**31 - 1
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FWD, _SEG, _BWD = 0, 1, 2
+_FWD, _SEG, _BWD, _P2G = 0, 1, 2, 3
+# K3's kernels as mpm_big_step_kernel_info numbers them
+KERNELS = ("zero and count", "bins' scan", "P2G (gradient)", "grid ops", "G2P",
+           "G2P adjoint", "grid ops adjoint", "particle adjoint", "P2G (rollout)")
 
 
 @functools.cache
@@ -69,12 +76,27 @@ def _lib():
     lib.mpm_big_step_launch.argtypes = (
         [_PTR] * 5 + [_PTR, _INT, _INT] * 3 + [_PTR, _INT] + [_PTR] * 4 + [_PTR] * 10
         + [_PTR] * 4 + [_INT, _INT] + [_INT] * 10 + [_FLOAT] * 8 + [_INT, _PTR]
-        + [_PTR, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]
+        + [_PTR, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR, _PTR]
     )
     lib.mpm_big_step_launch.restype = ctypes.c_int
+    lib.mpm_big_step_kernel_info.argtypes = [_INT, _INT, _PTR]
+    lib.mpm_big_step_kernel_info.restype = ctypes.c_int
     lib.unidom_cuda_error_string.argtypes = [ctypes.c_int]
     lib.unidom_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_info(which, device):
+    """What the card makes of K3's kernel ``which`` (an index into KERNELS):
+    registers and local memory (bytes) per thread, static shared memory
+    (bytes), threads per block and blocks per SM (the occupancy API)."""
+    out = (ctypes.c_int * 5)()
+    err = _lib().mpm_big_step_kernel_info(which, device, out)
+    if err != 0:
+        raise RuntimeError(f"K3 kernel info for {KERNELS[which]}: "
+                           f"{_lib().unidom_cuda_error_string(err).decode()} (error {err})")
+    return dict(zip(("registers", "local_bytes", "static_smem", "threads", "blocks_per_sm"),
+                    out))
 
 
 def list_capacity(sim):
@@ -101,13 +123,26 @@ def bwd_scratch(sim):
             4 * rx * ry * rz + 3 * P + N_EACC)
 
 
+def bin_scratch(sim):
+    """(ints per env of the sort by bin, bins, bin-list slots): each bin's
+    counter (bins: the stencil's base node over (rx + 2) x (ry + 2) x
+    (rz + 2), and one for the particles no node of whose stencil lies in the
+    grid), the bin list's count and slots, and each particle's bin, rank in
+    it and slot in bin order."""
+    rx, ry, rz = sim.conf.res
+    P = sim.n_particles
+    n_keys = (rx + 2) * (ry + 2) * (rz + 2) + 1
+    bin_cap = min(P, n_keys)
+    return n_keys + 1 + bin_cap + 3 * P, n_keys, bin_cap
+
+
 def scratch_bytes(sim, B, ckpt_stride=None):
     """Device memory of one K3-fwd macro step at ``B`` envs: the outputs
     and the kernel's scratch (the float4 grid and marks, carry, touched
     lists, frames); with ``ckpt_stride`` K, also what a gradient adds: P2G's
-    sums in double (32 B per cell), the history of a checkpoint every K
-    substeps, the output and input cotangents, K3-bwd's scratch and, for
-    K > 1, a segment of K carries."""
+    sums in double (32 B per cell), the sort by bin, the history of a
+    checkpoint every K substeps, the output and input cotangents, K3-bwd's
+    scratch and, for K > 1, a segment of K carries."""
     conf = sim.conf
     rx, ry, rz = conf.res
     P, n_prim = sim.n_particles, len(sim.sdf_names)
@@ -117,8 +152,8 @@ def scratch_bytes(sim, B, ckpt_stride=None):
         K = ckpt_stride
         floats, doubles = bwd_scratch(sim)
         per_env += (4 * math.ceil(conf.steps / K) * N_COMP * P + 2 * 4 * N_COMP * P
-                    + 32 * rx * ry * rz + 4 * floats + 8 * doubles
-                    + (4 * K * N_COMP * P if K > 1 else 0))
+                    + 32 * rx * ry * rz + 4 * bin_scratch(sim)[0] + 4 * floats + 8 * doubles
+                    + 4 + (4 * K * N_COMP * P if K > 1 else 0))
     return B * per_env
 
 
@@ -153,30 +188,40 @@ def check_supported_big(sim, B=None, ckpt_stride=None):
 
 
 def _call_big(sim, fields, frame, vw, *, what, K=1, hist=None, outs=(None,) * 7, segment=0,
-              seg_out=None, bwd_in=None, bwd_out=None):
-    """One ``mpm_big_step_launch``: K3-fwd, K3-seg or K3-bwd (``what``) on
-    the forward's inputs ``fields`` (x, v, C, F, J, mu, lamda, yield_stress,
-    friction; x..J may be None but for K3-fwd). Returns the CUDA launches."""
+              seg_out=None, bwd_in=None, bwd_out=None, gacc=None, mark=None):
+    """One ``mpm_big_step_launch``: K3-fwd, K3-seg, K3-bwd or the
+    gradient's P2G alone (``what``) on the forward's inputs ``fields`` (x,
+    v, C, F, J, mu, lamda, yield_stress, friction; x..J may be None but for
+    K3-fwd); ``gacc`` and ``mark``, when given, are the P2G sums' and marks'
+    scratch. Returns the CUDA launches."""
     conf = sim.conf
     B, P, dev = frame.shape[0], sim.n_particles, frame.device
     n_prim, steps = frame.shape[1], conf.steps
     rx, ry, rz = conf.res
     cells, cap = rx * ry * rz, list_capacity(sim)
     f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
     grid = torch.empty((B, cells, 4), **f32)
-    # P2G's sums in double where a gradient is wanted (see the source)
-    gacc = (torch.empty((B, cells, 4), dtype=torch.float64, device=dev)
-            if hist is not None else None)
-    mark = torch.empty((B, cells), dtype=torch.int32, device=dev)
+    # P2G's sums in double, and the sort by bin, where a gradient is wanted
+    # (see the source); the sort's counters start at 0
+    bin_ints, n_keys, bin_cap = None, 0, 0
+    if hist is not None:
+        if gacc is None:
+            gacc = torch.empty((B, cells, 4), dtype=torch.float64, device=dev)
+        per_env, n_keys, bin_cap = bin_scratch(sim)
+        bin_ints = torch.zeros((B * per_env,), **i32)
+    if mark is None:
+        mark = torch.empty((B, cells), **i32)
     carry = torch.empty((B, N_COMP, P), **f32)
     rows = torch.empty((B, steps + 1, n_prim, ROW), **f32)
     touched = torch.empty((B, cap), dtype=torch.int32, device=dev)
     n_touched = torch.empty((B,), dtype=torch.int32, device=dev)
-    bwd_floats = bwd_doubles = None
+    bwd_floats = bwd_doubles = bwd_ints = None
     if what == _BWD:
         floats, doubles = bwd_scratch(sim)
         bwd_floats = torch.empty((B * floats,), **f32)
         bwd_doubles = torch.empty((B * doubles,), dtype=torch.float64, device=dev)
+        bwd_ints = torch.empty((B,), **i32)
     grid_blocks = -(-min(cap, P) // THREADS)
     sdf_kinds = sum(SDF_KINDS[n] << i for i, n in enumerate(sim.sdf_names))
     device, stream = _device_and_stream(dev)
@@ -196,12 +241,13 @@ def _call_big(sim, fields, frame, vw, *, what, K=1, hist=None, outs=(None,) * 7,
         conf.dt, conf.dx, -conf.dt * conf.p_vol * 4.0, conf.dx**2, conf.p_mass,
         *(float(g) for g in conf.gravity), device, stream,
         _ptr(hist), K, what, segment, _ptr(seg_out), _pointer_array(bwd_in),
-        _pointer_array(bwd_out), _ptr(bwd_floats), _ptr(bwd_doubles), ctypes.byref(n_launches),
+        _pointer_array(bwd_out), _ptr(bwd_floats), _ptr(bwd_doubles), _ptr(bin_ints), n_keys,
+        bin_cap, _ptr(bwd_ints), ctypes.byref(n_launches),
     )
     mpm_big_step.cuda_launches += n_launches.value
     if err != 0:
         msg = lib.unidom_cuda_error_string(err).decode()
-        name = ("K3-fwd", "K3-seg", "K3-bwd")[what]
+        name = ("K3-fwd", "K3-seg", "K3-bwd", "K3's P2G")[what]
         raise RuntimeError(
             f"mpm_big_step {name} launch failed: {msg} (error {err}; B={B}, P={P}, "
             f"res={conf.res}, K={K}, after {n_launches.value} launches)")
@@ -213,7 +259,7 @@ def _history(sim, B, K):
                        dtype=torch.float32, device=sim._h.device)
 
 
-def _forward(sim, fields, frame, vw, K=1, hist=None):
+def _forward(sim, fields, frame, vw, K=1, hist=None, gacc=None, mark=None):
     """K3-fwd. Returns (x, v, C, F, J, traj_pos, traj_rot)."""
     B, n_prim, steps = frame.shape[0], frame.shape[1], sim.conf.steps
     f32 = dict(dtype=torch.float32, device=frame.device)
@@ -221,7 +267,7 @@ def _forward(sim, fields, frame, vw, K=1, hist=None):
     traj_pos = torch.empty((B, n_prim, steps + 1, 3), **f32)
     traj_rot = torch.empty((B, n_prim, steps + 1, 4), **f32)
     _call_big(sim, fields, frame, vw, what=_FWD, K=K, hist=hist,
-              outs=(*outs, traj_pos, traj_rot))
+              outs=(*outs, traj_pos, traj_rot), gacc=gacc, mark=mark)
     mpm_big_step.launches += 1
     return (*outs, traj_pos, traj_rot)
 
@@ -231,16 +277,19 @@ def _big_inputs(sim, state, ckpt_stride=None):
     return _inputs(sim, state, lambda s: check_supported_big(s, B, ckpt_stride))
 
 
-def launch_big(sim, state, ckpt_stride=None):
+def launch_big(sim, state, ckpt_stride=None, gacc=None, mark=None):
     """K3-fwd on ``state``, the output of ``sim.prepare``: the ``conf.steps``
     substeps and the buffers' row 0 <- row steps. Returns the new state, or
     with ``ckpt_stride`` K, (the new state, the history of a checkpoint
-    every K substeps). Raises on anything the kernel does not take."""
+    every K substeps); ``gacc`` and ``mark`` then, when given, keep the last
+    substep's P2G sums and marks. Raises on anything the kernel does not
+    take."""
     fields, frame, vw = _big_inputs(sim, state, ckpt_stride)
     if ckpt_stride is None:
         return _rebuild(state, _forward(sim, fields, frame, vw))
     hist = _history(sim, frame.shape[0], ckpt_stride)
-    return _rebuild(state, _forward(sim, fields, frame, vw, ckpt_stride, hist)), hist
+    outs = _forward(sim, fields, frame, vw, ckpt_stride, hist, gacc=gacc, mark=mark)
+    return _rebuild(state, outs), hist
 
 
 def mpm_big_step_seg(sim, state, hist, ckpt_stride, segment):
@@ -256,6 +305,22 @@ def mpm_big_step_seg(sim, state, hist, ckpt_stride, segment):
     _call_big(sim, fields, frame, vw, what=_SEG, K=K, hist=hist, segment=segment, seg_out=out)
     mpm_big_step.seg_launches += 1
     return out
+
+
+def p2g_sums(sim, state, hist, ckpt_stride, slot):
+    """The gradient's P2G alone (the path of K3-fwd with checkpoints, K3-seg
+    and K3-bwd's recompute) on carry ``slot`` of ``hist`` (``launch_big(...,
+    ckpt_stride)``'s) from ``state``, the output of ``sim.prepare``. Returns
+    (the sums of momentum and mass, (B, cells, 4) float64, and the marks of
+    the touched cells, (B, cells) int32), 0 where no stencil reached."""
+    fields, frame, vw = _big_inputs(sim, state)
+    B, dev = frame.shape[0], frame.device
+    rx, ry, rz = sim.conf.res
+    gacc = torch.zeros((B, rx * ry * rz, 4), dtype=torch.float64, device=dev)
+    mark = torch.zeros((B, rx * ry * rz), dtype=torch.int32, device=dev)
+    _call_big(sim, fields, frame, vw, what=_P2G, K=ckpt_stride, hist=hist, segment=slot,
+              gacc=gacc, mark=mark)
+    return gacc, mark
 
 
 class _MPMBigStepFn(torch.autograd.Function):

@@ -20,6 +20,12 @@ SDF collision. ``mpm_step.launches``,
 K2-fwd and K2-bwd and the K2-seg phases that K2-bwd ran (plus launches of
 ``mpm_step_seg``).
 
+``launch_config`` sizes K2-bwd's launch: a thread-block cluster per env,
+its size from the batch and the card's SMs, the threads and shared memory of
+each CTA and the stride K. It raises, naming the sizes, for a configuration
+whose CTA would exceed the card's shared memory, before anything is built or
+launched.
+
 The particle state crosses in the simulator's layout ((B, P, 3),
 (B, P, 3, 3), (B, P)); the primitives are packed into two small tensors; the
 history is (B, ceil(steps / K), 25, P), component-major as the kernels'
@@ -29,6 +35,7 @@ shared memory.
 import ctypes
 import functools
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -59,7 +66,23 @@ N_COMP = 25  # x 3, v 3, C 9, F 9, J 1
 # batches of the tests on K = 1.
 HISTORY_BUDGET = 64 * 2**20
 
-_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# K2-bwd's launch on an H100: a CTA may have SMEM_PER_BLOCK bytes of shared
+# memory, static and dynamic; BWD_STATIC_SMEM bounds the kernel's static part
+# (the primitives, the CTA's sums of their cotangents, its frames'
+# cotangents). A cluster has at most MAX_CLUSTER CTAs (the portable size),
+# a CTA at most BWD_MAX_THREADS threads (BWD_MAX_NT in the source: its
+# launch bounds, which cap the registers at 65,536 / 320 = 204 per thread)
+# and at least MIN_THREADS (one wave of whip_rope's 1024 envs keeps the
+# first design's 128 threads, 67 of them with a particle).
+SMEM_PER_BLOCK = 232_448
+N_SMS = 132
+MAX_CLUSTER = 8
+BWD_MAX_THREADS = 320
+MIN_THREADS = 128
+BWD_STATIC_SMEM = 2048
+MIN_PARTICLES_PER_CTA = 32
+
+_PTR, _INT, _FLOAT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _FWD, _SEG, _BWD = 0, 1, 2
 
 
@@ -71,20 +94,107 @@ def checkpoint_stride(B, P, steps):
     return math.ceil(math.sqrt(steps))
 
 
+def list_capacity(P, cells):
+    """Slots of a touched-cell list for P particles: a cell enters once per
+    substep, and at most 27 per particle do."""
+    return min(27 * P, cells)
+
+
+def smem_bytes(P, cells, steps, n_prim, bwd):
+    """Dynamic shared memory of a K2 block holding P particles (smem_bytes
+    in the source): the carry (and, backward, its cotangent), the primitive
+    rows, the touched list (and, backward, three accumulators per particle
+    in double, after 8 bytes of alignment slack)."""
+    floats = (2 if bwd else 1) * N_COMP * P + (steps + 1) * n_prim * 7
+    nbytes = 4 * floats + 4 * list_capacity(P, cells)
+    return nbytes + 8 + 8 * 3 * P if bwd else nbytes
+
+
+@dataclass(frozen=True)
+class LaunchConfig:
+    """K2-bwd's launch: ``cluster`` CTAs per env of ``threads`` threads,
+    each holding ``per_cta`` particles and a touched list of ``list_cap``
+    slots in ``smem`` bytes of dynamic shared memory; ``K`` the stride rule's
+    checkpoint stride."""
+
+    cluster: int
+    threads: int
+    per_cta: int
+    list_cap: int
+    smem: int
+    K: int
+
+
+def launch_config(B, P, cells, steps, n_prim, cluster=None):
+    """K2-bwd's launch for B envs of P particles on ``cells`` grid cells,
+    ``steps`` substeps and ``n_prim`` primitives. The cluster doubles while
+    B clusters of twice the size still fit the card's N_SMS SMs in one
+    wave and each CTA keeps MIN_PARTICLES_PER_CTA particles (shape_rope at
+    64 envs: 2; whip_rope at 1024: 1), and further while a CTA's shared
+    memory does not fit; ``cluster`` overrides the rule. Threads: one per
+    particle of a CTA, rounded up to a warp, within [MIN_THREADS,
+    BWD_MAX_THREADS]. Raises ValueError, naming the sizes, when no cluster
+    of at most MAX_CLUSTER CTAs holds the env."""
+    if min(B, P, cells, steps) < 1 or not 0 <= n_prim <= MAX_PRIMITIVES:
+        raise ValueError(f"B={B}, P={P}, cells={cells}, steps={steps}, n_prim={n_prim}")
+    if cluster is None:
+        cs = 1
+        while (cs < MAX_CLUSTER and 2 * cs * B <= N_SMS
+               and P >= 2 * cs * MIN_PARTICLES_PER_CTA):
+            cs *= 2
+        while cs < MAX_CLUSTER and _cta_smem(P, cs, cells, steps, n_prim) > SMEM_PER_BLOCK:
+            cs *= 2
+    else:
+        cs = int(cluster)
+        if not 1 <= cs <= MAX_CLUSTER:
+            raise ValueError(f"a cluster has 1 to {MAX_CLUSTER} CTAs, not {cs}")
+    per_cta = -(-P // cs)
+    need = _cta_smem(P, cs, cells, steps, n_prim)
+    if need > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"K2-bwd on {P} particles, {cells} grid cells, {steps} substeps and {n_prim} "
+            f"primitives needs {need} bytes of shared memory per CTA in a cluster of {cs} "
+            f"({per_cta} particles each); a CTA may have {SMEM_PER_BLOCK}")
+    threads = min(max(-(-per_cta // 32) * 32, MIN_THREADS), BWD_MAX_THREADS)
+    return LaunchConfig(cs, threads, per_cta, list_capacity(per_cta, cells),
+                        smem_bytes(per_cta, cells, steps, n_prim, True),
+                        checkpoint_stride(B, P, steps))
+
+
+def _cta_smem(P, cs, cells, steps, n_prim):
+    return smem_bytes(-(-P // cs), cells, steps, n_prim, True) + BWD_STATIC_SMEM
+
+
 @functools.cache
 def _lib():
     lib = load_library(SOURCE)
     lib.mpm_step_launch.argtypes = (
         [_PTR] * 5 + [_PTR, _INT, _INT] * 3 + [_PTR, _INT] + [_PTR] * 4 + [_PTR] * 9
         + [_PTR, _INT] + [_INT] * 10 + [_FLOAT] * 8 + [_INT, _PTR]
-        + [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT]
+        + [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT] + [_INT] * 3 + [_LL]
     )
     lib.mpm_step_launch.restype = ctypes.c_int
     lib.mpm_step_smem_bytes.argtypes = [_INT] * 5
     lib.mpm_step_smem_bytes.restype = ctypes.c_size_t
+    lib.mpm_step_bwd_kernel_info.argtypes = [_INT, _LL, _INT, _INT, _PTR]
+    lib.mpm_step_bwd_kernel_info.restype = ctypes.c_int
     lib.unidom_cuda_error_string.argtypes = [ctypes.c_int]
     lib.unidom_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def bwd_kernel_info(cfg, device):
+    """What the card makes of K2-bwd at ``cfg`` (a LaunchConfig): registers
+    and local memory (bytes) per thread, static shared memory (bytes), blocks
+    per SM (the occupancy API) and clusters of ``cfg.cluster`` the card holds
+    at once."""
+    out = (ctypes.c_int * 5)()
+    err = _lib().mpm_step_bwd_kernel_info(cfg.threads, cfg.smem, cfg.cluster, device, out)
+    if err != 0:
+        raise RuntimeError(f"K2-bwd kernel info for {cfg}: "
+                           f"{_lib().unidom_cuda_error_string(err).decode()} (error {err})")
+    return dict(zip(("registers", "local_bytes", "static_smem", "blocks_per_sm",
+                     "clusters"), out))
 
 
 def _device_and_stream(dev):
@@ -163,10 +273,10 @@ def _pointer_array(tensors):
 
 
 def _call(sim, fields, frame, vw, *, what, K=1, hist=None, outs=(None,) * 7, segment=0,
-          seg_out=None, bwd_in=None, bwd_out=None, scratch=None, list_cap=0):
-    """One ``mpm_step_launch``: K2-fwd, K2-seg or K2-bwd (``what``) on the
-    forward's inputs ``fields`` (x, v, C, F, J, mu, lamda, yield_stress,
-    friction; x..J may be None but for K2-fwd)."""
+          seg_out=None, bwd_in=None, bwd_out=None, scratch=None, cfg=None):
+    """One ``mpm_step_launch``: K2-fwd, K2-seg or K2-bwd (``what``, launched
+    as ``cfg`` says) on the forward's inputs ``fields`` (x, v, C, F, J, mu,
+    lamda, yield_stress, friction; x..J may be None but for K2-fwd)."""
     conf = sim.conf
     B, P, dev = frame.shape[0], sim.n_particles, frame.device
     n_prim, steps = frame.shape[1], conf.steps
@@ -191,15 +301,16 @@ def _call(sim, fields, frame, vw, *, what, K=1, hist=None, outs=(None,) * 7, seg
         conf.dt, conf.dx, -conf.dt * conf.p_vol * 4.0, conf.dx**2, conf.p_mass, *gravity,
         device, stream,
         what, segment, _ptr(seg_out), _pointer_array(bwd_in), _pointer_array(bwd_out),
-        _ptr(scratch), list_cap,
+        _ptr(scratch), *((cfg.list_cap, cfg.cluster, cfg.threads, cfg.per_cta, cfg.smem)
+                         if cfg else (0, 1, 0, 0, 0)),
     )
     if err != 0:
         msg = lib.unidom_cuda_error_string(err).decode()
         name = ("K2-fwd", "K2-seg", "K2-bwd")[what]
+        smem = cfg.smem if cfg else lib.mpm_step_smem_bytes(P, cells, steps, n_prim, 0)
         raise RuntimeError(
             f"mpm_step {name} launch failed: {msg} (error {err}; B={B}, P={P}, res={conf.res}, "
-            f"K={K}, dynamic shared memory "
-            f"{lib.mpm_step_smem_bytes(P, cells, steps, n_prim, int(what == _BWD))} bytes)")
+            f"K={K}, dynamic shared memory {smem} bytes" + (f", {cfg}" if cfg else "") + ")")
 
 
 def _inputs(sim, state, check=check_supported):
@@ -307,23 +418,27 @@ class _MPMStepFn(torch.autograd.Function):
         return (None, None, *grads)
 
 
-def _backward(sim, fields, frame, vw, hist, K, cots):
+def _backward(sim, fields, frame, vw, hist, K, cots, cluster=None):
     """K2-bwd: the cotangents of x, v, C, F, J, mu, lamda, yield_stress,
-    friction, frame and vw from those of the outputs ``cots``."""
+    friction, frame and vw from those of the outputs ``cots``; ``cluster``
+    overrides launch_config's cluster size."""
     B, P, dev = frame.shape[0], sim.n_particles, frame.device
     conf = sim.conf
     cells = conf.res[0] * conf.res[1] * conf.res[2]
-    list_cap = min(27 * P, cells)
+    cfg = launch_config(B, P, cells, conf.steps, frame.shape[1], cluster)
     f32 = dict(dtype=torch.float32, device=dev)
     grads = [torch.empty((B, P, 3), **f32), torch.empty((B, P, 3), **f32),
              torch.empty((B, P, 3, 3), **f32), torch.empty((B, P, 3, 3), **f32),
              torch.empty((B, P), **f32)]
     grads += [torch.empty(fields[n].shape, **f32) for n in ("mu", "lamda", "yield_stress")]
     grads += [torch.empty((B, 1), **f32), torch.empty_like(frame), torch.empty_like(vw)]
-    scratch = torch.empty((B * (cells + list_cap) * 4,), **f32)
+    # the grid cotangent (a float4 per cell), and per CTA K records of a
+    # substep's grid: list_cap cells' momentum and mass (float4) and index,
+    # and their count
+    scratch = torch.empty((B * (4 * cells + cfg.cluster * K * (5 * cfg.list_cap + 1)),), **f32)
     seg = torch.empty((B, K, N_COMP, P), **f32) if K > 1 else None
     _call(sim, fields, frame, vw, what=_BWD, K=K, hist=hist, seg_out=seg, bwd_in=cots,
-          bwd_out=grads, scratch=scratch, list_cap=list_cap)
+          bwd_out=grads, scratch=scratch, cfg=cfg)
     mpm_step.bwd_launches += 1
     if K > 1:
         mpm_step.seg_launches += math.ceil(conf.steps / K)
@@ -336,7 +451,9 @@ def kernel_step(sim, state, ckpt_stride=None):
     (by default ``checkpoint_stride``'s rule) and K2-bwd in the backward."""
     fields, frame, vw = _inputs(sim, state)
     B, P, steps = state.x.shape[0], sim.n_particles, sim.conf.steps
-    K = checkpoint_stride(B, P, steps) if ckpt_stride is None else int(ckpt_stride)
+    res = sim.conf.res
+    K = launch_config(B, P, res[0] * res[1] * res[2], steps, frame.shape[1]).K
+    K = K if ckpt_stride is None else int(ckpt_stride)
     if not 1 <= K <= steps:
         raise ValueError(f"ckpt_stride must be in [1, {steps}], not {K}")
     outs = _MPMStepFn.apply(sim, K, *(fields[n] for n in ("x", "v", "C", "F", "J", "mu", "lamda",
