@@ -75,11 +75,15 @@ collision, K3-fwd with checkpoints, K3-seg and K3-bwd:
     shape_rope at 64 envs, beside the plain VJP and the bounds; a profile
     of one shape_rope ``train`` iteration.
 ``[k2-design]`` and ``[k3-design]`` print what the card makes of the MPM
-backward kernels (registers, local memory, shared memory per CTA, CTAs per
-cluster, blocks per SM) and K2-bwd's times on shape_rope at 16, 64 and 256
-envs (the other cluster sizes at 64) and whip_rope at 1024, K3-bwd's on
-shape_elasto_plastic at 8 and 16; and hold the P2G grid that K3-bwd
-recomputes against the one the checkpointing forward summed.
+kernels (registers, local memory, shared memory per CTA, CTAs per cluster,
+blocks per SM); K2-fwd's and K2-bwd's times on shape_rope at 16, 64 and 256
+envs (the other cluster sizes at 64) and whip_rope at 1024, with K2-fwd's
+substep split into its phases, and each of those launches (clusters of 1,
+2, 4 and 8) held to the float64 plain step; K3-fwd's rollout on pour_soup
+at 32 envs and shape_elasto_plastic at 16 and its device time by launch, and
+the scratch it keeps for the next rollout back at 0; K3-bwd's on shape_elasto_plastic at 8 and 16; and
+hold the P2G grid that K3-bwd recomputes against the one the checkpointing
+forward summed.
 The counters show that each path launches its own kernels and no other.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
@@ -1626,6 +1630,8 @@ SOUP_TIME_B = (8, 32, 64)
 # some envs (water at J = 0 through the walls), chaotically, in the plain
 # step as in the kernel.
 SOUP_REPLAYED = (0, 40, 80)
+# the escaping envs' input and action (scripts/pour_soup_f32.py --replay)
+SOUP_ESCAPE = ROOT / "build" / "pour_soup_escape.npz"
 # bowl 0's macro action in the parity step (moving and tilting; bowl 1 stays)
 SOUP_ACTION = (0.5, 0.2, -0.3, 0.0, 0.0, 0.4)
 # a push from beside the slab into its side, 0.06 long, in world positions
@@ -1696,6 +1702,24 @@ def big_outside(env, s, info):
     shift[:, 1] = 0.0
     x = info["state_list"][-1].x + shift[:, None]
     return ~((x >= 0) & (x <= conf.n_grid * conf.dx)).all(-1).all(-1)
+
+
+def save_mpm_state(path, state, action, envs):
+    """The envs ``envs`` of an MPM state and their action as numpy arrays in
+    ``path`` (``.npz``; a primitive's field under ``primitives.<i>.<name>``),
+    for ``scripts/pour_soup_f32.py --replay``."""
+    import numpy as np
+
+    idx = list(envs)
+    arrays = {"action": action[idx].cpu().numpy()}
+    for f in dataclasses.fields(state):
+        if f.name != "primitives":
+            arrays[f.name] = getattr(state, f.name)[idx].cpu().numpy()
+    for i, p in enumerate(state.primitives):
+        for f in dataclasses.fields(p):
+            arrays[f"primitives.{i}.{f.name}"] = getattr(p, f.name)[idx].cpu().numpy()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **arrays)
 
 
 def big_parity(what, sim, state, action, n_plain):
@@ -1876,10 +1900,12 @@ def big_phases(dev):
                         acts[t].to(dtype), s_d)
                     seen[name] = big_outside(soup, s_d, pinfo).nonzero().flatten().tolist()
                     del s_d, pinfo
+                save_mpm_state(SOUP_ESCAPE, s, acts[t], first[1])
                 log(f"[big-rollout] pour_soup macro step {t}: the first where particles leave "
                     f"the walls' box (or are not finite) in the kernel's run, in envs "
                     f"{first[1]}; replayed from the same input, in the float32 plain step's "
-                    f"envs {seen['float32']}, the float64 one's {seen['float64']}")
+                    f"envs {seen['float32']}, the float64 one's {seen['float64']}; their input "
+                    f"and action saved to {SOUP_ESCAPE.relative_to(ROOT)}")
             escaped |= out
             if t in SOUP_REPLAYED:
                 head, a_head = mpm_slice_envs(s, B_SOUP_PLAIN), acts[t][:B_SOUP_PLAIN]
@@ -2600,10 +2626,15 @@ def k2_bwd_inputs(sim, s, a, K):
 
 
 def k2_design_phase(dev):
-    """[k2-design]: K2-bwd's launch as launch_config picks it on shape_rope
-    at K2_DESIGN_B envs and whip_rope at 1024 (and the other cluster sizes
-    at shape_rope's 64): registers, local memory, shared memory per CTA,
-    CTAs per cluster, CTAs per SM, clusters resident, and ms per call."""
+    """[k2-design]: K2-fwd's launch as fwd_launch_config picks it and
+    K2-bwd's as launch_config picks it, on shape_rope at K2_DESIGN_B envs
+    and whip_rope at 1024 (and the other cluster sizes at shape_rope's 64):
+    registers, local memory, shared memory per CTA, CTAs per cluster, CTAs
+    per SM, clusters resident, and ms per call; each K2-fwd launch's outputs
+    held to the float64 plain step by mpm_gate; K2-fwd's substep split into
+    its phases (stencils zeroed, P2G, grid ops, G2P) by clock64() stamps of
+    the launch's first CTA, from a launch of the stamped instantiation
+    (the timed one is the main path's)."""
     import torch
 
     from unidom_torch import make_env
@@ -2611,6 +2642,64 @@ def k2_design_phase(dev):
 
     t_phase = time.perf_counter()
     device = torch.cuda.current_device()
+
+    refs = {}  # the plain steps (float32, float64) per configuration and B
+
+    def timed_fwd(name, B, sim, s, a, cluster=None):
+        conf = sim.conf
+        cfg = mk.fwd_launch_config(B, sim.n_particles, math.prod(conf.res), conf.steps,
+                                   len(sim.sdf_names), cluster)
+        info = mk.fwd_kernel_info(cfg, device)
+        with torch.no_grad():
+            prepared = sim.prepare(s, a)
+            fields, frame, vw = mk._inputs(sim, prepared)
+            ms = cuda_ms(lambda: mk._forward(sim, fields, frame, vw, cluster=cluster), reps=5,
+                         warmup=1)
+            if (name, B) not in refs:
+                refs[(name, B)] = (sim._step_plain(s, a),
+                                   sim._step_plain(mpm_cast(s, torch.float64), a.double()))
+            out = mk._rebuild(prepared, mk._forward(sim, fields, frame, vw, cluster=cluster))
+            mpm_gate(f"k2-design K2-fwd {name} B={B} cluster of {cfg.cluster}", out,
+                     *refs[(name, B)])
+            del out
+            clocks = torch.zeros(6, dtype=torch.int64, device=dev)
+            mk._forward(sim, fields, frame, vw, cluster=cluster, clocks=clocks)
+            clocks = clocks.tolist()
+        if clocks[5] != 4 * conf.steps:
+            fail(f"K2-fwd's stamped launch counted {clocks[5]} phases, not 4 x {conf.steps}")
+        total = sum(clocks[:4])
+        waves = math.ceil(B * cfg.cluster / (N_SMS * max(info["blocks_per_sm"], 1)))
+        log(f"[k2-design] K2-fwd {name} B={B}, cluster of {cfg.cluster}"
+            f"{' (chosen)' if cluster is None else ''}: {cfg.threads} threads and "
+            f"{cfg.per_cta} particles per CTA, {info['registers']} registers, "
+            f"{info['local_bytes']} B local memory per thread, {cfg.smem} B dynamic + "
+            f"{info['static_smem']} B static shared memory per CTA, {info['blocks_per_sm']} CTAs "
+            f"per SM, {info['clusters']} clusters resident; {ms:.4f} ms ({waves} waves); a "
+            f"substep's phases in the first CTA: " + ", ".join(
+                f"{n} {100 * c / total:.1f}% ({ms * c / total / conf.steps * 1e3:.2f} us)"
+                for n, c in zip(("stencils zeroed", "P2G", "grid ops", "G2P"), clocks[:4])))
+        del fields, frame, vw, prepared
+        return ms
+
+    fwd_times = {}
+    for B in K2_DESIGN_B:
+        sim, s, a = mpm_config_sim("shape_rope", B, dev)
+        fwd_times[B] = timed_fwd("shape_rope", B, sim, s, a)
+        if B == B_SHAPE_ROPE:
+            chosen = mk.fwd_launch_config(B, sim.n_particles, math.prod(sim.conf.res),
+                                          sim.conf.steps, 1).cluster
+            for cl in K2_DESIGN_CLUSTERS:
+                if cl != chosen:
+                    timed_fwd("shape_rope", B, sim, s, a, cl)
+        del sim, s, a
+        refs.clear()
+    env = make_env("whip_rope", batch_size=B_MAIN, device=dev)
+    s = whip_rope_parity_state(env, dev)
+    a = torch.tensor(MPM_ACTION, device=dev).expand(B_MAIN, 6).contiguous()
+    fwd_times["whip_rope"] = timed_fwd("whip_rope", B_MAIN, env.simulator, s, a)
+    del env, s, a
+    refs.clear()
+    torch.cuda.empty_cache()
 
     def timed(name, B, sim, s, a, cluster=None):
         conf = sim.conf
@@ -2649,16 +2738,42 @@ def k2_design_phase(dev):
     del env, s, a
     torch.cuda.empty_cache()
     log(f"[k2-design] {time.perf_counter() - t_phase:.2f} s")
-    return times
+    return fwd_times, times
+
+
+def device_ms_by_kernel(fn):
+    """fn() once under torch.profiler: {kernel name: (device ms, launches)}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return by_name
+
+
+# K3-fwd's rollout launches by kernel name (the profiler's names hold them)
+K3_ROLLOUT_LAUNCHES = (("pack", "big_pack_kernel"), ("bins' scan", "big_bin_kernel"),
+                       ("P2G", "big_p2g_sorted_kernel"), ("grid ops", "big_grid_kernel"),
+                       ("G2P", "big_g2p_kernel"), ("unpack", "big_unpack_kernel"))
 
 
 def k3_design_phase(dev):
     """[k3-design]: each K3 kernel's registers, local memory, shared memory
-    and blocks per SM; K3-bwd's ms per shape_elasto_plastic call at
-    K3_DESIGN_B envs; and the recomputed-grid check: the gradient's P2G of
+    and blocks per SM; the rollout's K3-fwd (P2G in bin order, float sums)
+    at pour_soup's B_SOUP envs and shape_elasto_plastic's B_ELASTO: ms per
+    call and each launch's device ms per substep, and the zeroed scratch the
+    simulator keeps for its next rollout checked to be 0 again; K3-bwd's ms per shape_elasto_plastic call
+    at K3_DESIGN_B envs; and the recomputed-grid check: the gradient's P2G of
     the last substep's carry, recomputed as K3-bwd recomputes it, against
     the grid the checkpointing forward summed (shape_elasto_plastic at 16
-    envs)."""
+    envs). Returns K3-fwd's rollout ms by (env, B) and K3-bwd's by B."""
     import torch
 
     from unidom_torch import make_env
@@ -2672,6 +2787,37 @@ def k3_design_phase(dev):
         log(f"[k3-design] K3 {name}: {info['threads']} threads per block, {info['registers']} "
             f"registers, {info['local_bytes']} B local memory per thread, {info['static_smem']} B "
             f"static shared memory, 1 CTA per cluster, {info['blocks_per_sm']} blocks per SM")
+    rollout = {}
+    for name, B in (("pour_soup", B_SOUP), ("shape_elasto_plastic", B_ELASTO)):
+        env = make_env(name, batch_size=B, device=dev)
+        sim = env.simulator
+        ws, wa = big_parity_inputs(env, dev)
+        steps = sim.conf.steps
+        with torch.no_grad():
+            fields, frame, vw = mbk._big_inputs(sim, sim.prepare(ws, wa))
+            ms = cuda_ms(lambda: mbk._forward(sim, fields, frame, vw), reps=10, warmup=1)
+            by_kernel = device_ms_by_kernel(lambda: mbk._forward(sim, fields, frame, vw))
+            torch.cuda.synchronize()
+            kept = mbk.zeroed_parts(sim, mbk._ROLLOUT_SCRATCH[sim][1])
+            nonzero = [int(t.count_nonzero()) for t in kept]
+        log(f"[k3-design] K3-fwd rollout {name} B={B}: the scratch kept for the next rollout "
+            f"(float sums, marks, the sort's counters) after 12 calls: {nonzero} entries not 0")
+        if any(nonzero):
+            fail(f"K3-fwd's rollout left its kept scratch not 0 on {name}")
+        rollout[(name, B)] = ms
+        split, named = [], 0.0
+        for label, kernel in K3_ROLLOUT_LAUNCHES:
+            k_ms = sum(m for n, (m, _) in by_kernel.items() if kernel in n)
+            k_n = sum(c for n, (_, c) in by_kernel.items() if kernel in n)
+            named += k_ms
+            split.append(f"{label} {k_ms / max(k_n, 1):.4f} ms x{k_n}")
+        other = sum(m for m, _ in by_kernel.values()) - named
+        split.append(f"other device work {other:.4f} ms")
+        log(f"[k3-design] K3-fwd rollout {name} B={B}, {steps} substeps: {ms:.4f} ms per call; "
+            f"one call's device ms per launch by launch (the launches the profiler saw): "
+            + "; ".join(split))
+        del env, sim, ws, wa, fields, frame, vw, kept
+        torch.cuda.empty_cache()
     times = {}
     for B in K3_DESIGN_B:
         env = make_env("shape_elasto_plastic", batch_size=B, device=dev)
@@ -2717,7 +2863,7 @@ def k3_design_phase(dev):
         del env, sim, ws, wa, prepared, fields, frame, vw
         torch.cuda.empty_cache()
     log(f"[k3-design] {time.perf_counter() - t_phase:.2f} s")
-    return times
+    return rollout, times
 
 
 def main():

@@ -12,9 +12,13 @@
 // rewrite rehearse.py makes of the source.
 #pragma once
 
+#ifndef HOST_CUDA_SMEM_FILL  // every byte of a block's shared memory at launch
+#define HOST_CUDA_SMEM_FILL 0xCD
+#endif
 #include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
@@ -213,7 +217,7 @@ void launch(K kernel, dim3 grid, dim3 block, size_t smem, int cluster, A&&... ar
       b->rank = r;
       b->cluster = cs > 1 ? &cl : nullptr;
       b->dyn = (smem + 31) & ~size_t(31);
-      b->arena.assign(b->dyn + STATIC_BYTES, 0xCD);
+      b->arena.assign(b->dyn + STATIC_BYTES, HOST_CUDA_SMEM_FILL);
       blocks.push_back(b.get());
       own.push_back(std::move(b));
     }
@@ -245,6 +249,9 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, K kernel, A&&... a
 }
 
 inline void __syncthreads() { host_cuda::t_block->bar->arrive_and_wait(); }
+inline long long clock64() {
+  return std::chrono::steady_clock::now().time_since_epoch().count();
+}
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 template <class T>
 T __ldcg(const T* p) {
@@ -282,6 +289,21 @@ inline int lane_up(int l, int d, int) { return l - d >= 0 ? l - d : l; }
 inline int lane_xor(int l, int m, int) { return l ^ m; }
 template <class T>
 T __shfl_down_sync(unsigned, T v, int d) { return shfl_from(v, lane_down, d); }
+// a vote: every lane's predicate through the warp's buffer
+inline unsigned __ballot_sync(unsigned, int pred) {
+  using namespace host_cuda;
+  Block* b = t_block;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  b->warp_buf[w][lane] = pred != 0;
+  b->warp_bar[w]->arrive_and_wait();
+  unsigned out = 0;
+  const int n = std::min(32, (int)(blockDim.x * blockDim.y * blockDim.z) - 32 * w);
+  for (int l = 0; l < n; ++l)
+    if (b->warp_buf[w][l]) out |= 1u << l;
+  b->warp_bar[w]->arrive_and_wait();
+  return out;
+}
+inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
 template <class T>
 T __shfl_up_sync(unsigned, T v, int d) { return shfl_from(v, lane_up, d); }
 template <class T>

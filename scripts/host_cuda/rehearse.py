@@ -5,12 +5,16 @@ under the stand-in CUDA runtime beside this file (every CUDA thread a
 ``std::thread``, clusters, warp shuffles and distributed shared memory
 emulated), optionally with every ``float`` a ``double``, loads them through
 copies of the wrappers (``ops/cuda/mpm_kernel.py`` and ``mpm_big_kernel.py``)
-and holds the kernels' VJPs of one macro step against autograd of the plain
-step in the same precision, on every input cotangent. In float64 the
-kernels must agree with the plain step to rounding (~1e-12 relative), which
-the card's float32 gates cannot show.
+and holds the kernels against the plain step in the same precision: the
+VJPs of one macro step against its autograd, on every input cotangent (``k2``,
+``k3``), and the forward alone, no gradient, on every output (``k2fwd``:
+K2-fwd at clusters of 1, 2, 4 and 8; ``k3fwd``: K3-fwd's rollout, P2G in
+bin order with float sums, twice on the scratch it keeps, which must be 0
+again after each call). In float64 the kernels must
+agree with the plain step to rounding (~1e-12 relative), which the card's
+float32 gates cannot show.
 
-    python scripts/host_cuda/rehearse.py --f64 --out /tmp/rehearse k2 k3
+    python scripts/host_cuda/rehearse.py --f64 --out /tmp/rehearse k2 k3 k2fwd k3fwd
 
 Run it under ``timeout``: a barrier or shuffle that not every thread reaches
 hangs the host build. It runs small configurations (a few substeps, one or
@@ -72,8 +76,9 @@ def _rewrite(text, name, f64):
     return text
 
 
-def build(source, out_dir, f64):
-    """Build csrc/<source> for the host; returns the library's path."""
+def build(source, out_dir, f64, smem_fill=0xCD):
+    """Build csrc/<source> for the host, every byte of a block's shared
+    memory ``smem_fill`` at launch; returns the library's path."""
     out_dir.mkdir(parents=True, exist_ok=True)
     for name in (source, "mpm_device.cuh"):
         text = _rewrite((CSRC / name).read_text(), name, f64)
@@ -83,19 +88,36 @@ def build(source, out_dir, f64):
         (out_dir / (name.replace(".cu", ".cpp") if name.endswith(".cu") else name)).write_text(text)
     lib = out_dir / f"{Path(source).stem}{'_f64' if f64 else ''}.so"
     cmd = ["g++", "-O2", "-std=c++20", "-pthread", "-shared", "-fPIC", "-w",
-           f"-DHOST_CUDA_REAL={'double' if f64 else 'float'}", "-I", str(out_dir), "-I", str(HERE),
+           f"-DHOST_CUDA_REAL={'double' if f64 else 'float'}", f"-DHOST_CUDA_SMEM_FILL={smem_fill}",
+           "-I", str(out_dir), "-I", str(HERE),
            "-o", str(lib), str(out_dir / source.replace(".cu", ".cpp"))]
     subprocess.run(cmd, check=True)
     return lib
 
 
-def wrappers(libs, f64):
+# what the poisoned wrappers' torch.empty tensors hold: floats POISON[0]
+# (NaN shows in any arithmetic; a large finite value passes a comparison
+# such as mass > 0 that NaN fails), ints a value far outside any index
+POISON = [float("nan")]
+
+
+def _poisoned(t):
+    """``t`` filled with what an unset read would show."""
+    return t.fill_(POISON[0] if t.is_floating_point() else 0x7F7F7F7F)
+
+
+def wrappers(libs, f64, poison=False):
     """Copies of mpm_kernel.py and mpm_big_kernel.py that load the host
     libraries, take CPU tensors and, in float64, float64 tensors and C
-    doubles. Returns (mk, mbk)."""
+    doubles; with ``poison``, whose ``torch.empty`` scratch and outputs
+    start poisoned (``_poisoned``), as the card's reused memory may hold
+    anything. Returns (mk, mbk)."""
     mods = {}
     for name, source in (("mpm_kernel", "mpm_step.cu"), ("mpm_big_kernel", "mpm_big_step.cu")):
         text = (ROOT / "unidom_torch" / "ops" / "cuda" / f"{name}.py").read_text()
+        if poison:
+            text = text.replace("torch.empty_like(", "_empty_like(").replace(
+                "torch.empty(", "_empty(")
         if f64:
             # doubles take twice a float's shared memory, which the host has
             text = text.replace("torch.float32", "torch.float64").replace(
@@ -104,6 +126,8 @@ def wrappers(libs, f64):
         mod = types.ModuleType(f"unidom_torch.ops.cuda.{name}")
         mod.__file__ = str(ROOT / "unidom_torch" / "ops" / "cuda" / f"{name}.py")
         sys.modules[mod.__name__] = mod
+        mod._empty = lambda *a, **k: _poisoned(torch.empty(*a, **k))
+        mod._empty_like = lambda *a, **k: _poisoned(torch.empty_like(*a, **k))
         exec(compile(text, mod.__file__, "exec"), mod.__dict__)
         mod.load_library = lambda _src, path=libs[source]: ctypes.CDLL(str(path))
         mod._lib.cache_clear()
@@ -122,8 +146,9 @@ def _as(sim, dtype):
     return out
 
 
-def compare(what, kernel, plain, names):
-    """Relative error norm of each input cotangent; returns the largest."""
+def compare(what, kernel, plain, names, of="input cotangent"):
+    """Relative error norm of each input cotangent (or of what ``of``
+    names); returns the largest."""
     worst = 0.0
     parts = []
     for n, k, p in zip(names, kernel, plain):
@@ -132,24 +157,49 @@ def compare(what, kernel, plain, names):
         rel = err / ref if ref > 0 else err
         worst = max(worst, rel)
         parts.append(f"{n} {rel:.1e}")
-    print(f"[{what}] kernel vs autograd of the plain step, relative error per cotangent: "
-          + ", ".join(parts), flush=True)
+    print(f"[{what}] kernel vs the plain step, relative error per {of}: " + ", ".join(parts),
+          flush=True)
     return worst
+
+
+def _cut(sim, s, steps):
+    """``sim`` and ``s`` cut to a macro step of ``steps`` substeps."""
+    sim.conf = dataclasses.replace(sim.conf, steps=steps)
+    for p in s.primitives:  # the per-substep v and w of the cut macro step
+        p.v, p.w = p.v[:, :steps].contiguous(), p.w[:, :steps].contiguous()
+        p.position = p.position[:, :steps + 1].contiguous()
+        p.rotation = p.rotation[:, :steps + 1].contiguous()
+
+
+def compare_fwd(what, kernel, plain):
+    """Relative error norm of each output of a macro step; returns the
+    largest."""
+    names = ("x", "v", "C", "F", "J")
+    pairs = [(n, getattr(kernel, n), getattr(plain, n)) for n in names]
+    for i, (pk, pp) in enumerate(zip(kernel.primitives, plain.primitives)):
+        pairs += [(f"position{i}", pk.position, pp.position),
+                  (f"rotation{i}", pk.rotation, pp.rotation)]
+    return compare(what, [k for _, k, _ in pairs], [p for _, _, p in pairs],
+                   [n for n, _, _ in pairs], "outputs")
 
 
 def rehearse_k2(mk, dtype, steps, clusters):
     """K2-bwd (under autograd of K2-fwd) on shape_rope cut to ``steps``
-    substeps at each cluster size, K = 1 and K = 2, a bowl and position
-    control."""
+    substeps at each cluster size, K = 1 and K = 2, a bowl, position
+    control and whip_rope (two envs), all cut to ``steps`` substeps."""
+    from unidom_torch import make_env
+
     worst = 0.0
-    cases = [("shape_rope", False), ("bowl_water", False), ("plastic", True), ("von_mises", True)]
+    cases = [("shape_rope", False), ("bowl_water", False), ("plastic", True), ("von_mises", True),
+             ("whip_rope", True)]
     for name, pc in cases:
-        sim, s, a = cs.mpm_config_sim(name, 2, torch.device("cpu"), position_control=pc)
-        sim.conf = dataclasses.replace(sim.conf, steps=steps)
-        for p in s.primitives:  # the per-substep v and w of the cut macro step
-            p.v, p.w = p.v[:, :steps].contiguous(), p.w[:, :steps].contiguous()
-            p.position = p.position[:, :steps + 1].contiguous()
-            p.rotation = p.rotation[:, :steps + 1].contiguous()
+        if name == "whip_rope":
+            env = make_env("whip_rope", batch_size=2, device="cpu")
+            sim, s = env.simulator, cs.whip_rope_parity_state(env, torch.device("cpu"))
+            a = torch.tensor(cs.MPM_ACTION, dtype=torch.float32).expand(2, 6).contiguous()
+        else:
+            sim, s, a = cs.mpm_config_sim(name, 2, torch.device("cpu"), position_control=pc)
+        _cut(sim, s, steps)
         s, a = cs.mpm_cast(s, dtype), a.to(dtype)
         ksim = _as(sim, dtype)
         cot = [c.to(dtype) for c in cs.mpm_vjp_cot(s)]
@@ -218,24 +268,112 @@ def rehearse_k3(mbk, dtype):
     return worst
 
 
+def rehearse_k2fwd(mk, dtype, steps, clusters):
+    """K2-fwd, no gradient, on shape_rope cut to ``steps`` substeps at each
+    cluster size (two envs), and on whip_rope (its 67 particles under
+    position control, one env, 96 threads)."""
+    from unidom_torch import make_env
+
+    worst = 0.0
+    sim, s, a = cs.mpm_config_sim("shape_rope", 2, torch.device("cpu"))
+    env = make_env("whip_rope", batch_size=1, device="cpu")
+    ws = cs.whip_rope_parity_state(env, torch.device("cpu"))
+    wa = torch.tensor([cs.MPM_ACTION], dtype=torch.float32)
+    for name, sim_, s_, a_, cls in (("shape_rope", sim, s, a, clusters),
+                                   ("whip_rope", env.simulator, ws, wa, (None,))):
+        _cut(sim_, s_, steps)
+        s_, a_ = cs.mpm_cast(s_, dtype), a_.to(dtype)
+        ksim = _as(sim_, dtype)
+        with torch.no_grad():
+            plain = sim_._step_plain(s_, a_)
+            for cl in cls:
+                cfg = mk.fwd_launch_config(s_.x.shape[0], sim_.n_particles,
+                                           int(np.prod(sim_.conf.res)), steps,
+                                           len(s_.primitives), cl)
+                t0 = time.perf_counter()
+                fields, frame, vw = mk._inputs(ksim, ksim.prepare(s_, a_))
+                k = mk._rebuild(s_, mk._forward(ksim, fields, frame, vw, cluster=cl))
+                worst = max(worst, compare_fwd(
+                    f"K2-fwd {name} P={sim_.n_particles} cluster of {cfg.cluster}, "
+                    f"{cfg.threads} threads, {cfg.per_cta} particles per CTA, "
+                    f"{time.perf_counter() - t0:.1f} s", k, plain))
+    return worst
+
+
+def rehearse_k3fwd(mbk, dtype):
+    """K3-fwd's rollout, no gradient, on tests/test_torch_mpm_big.py's
+    configs (a mixture of water, tofu and vegetables in two bowls, as
+    pour_soup; a sigma-clip slab; position control), twice: the second call
+    on the zeroed scratch the first kept, which must be 0 after each."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_mpm_big import CONFIGS
+
+    from unidom_torch.engine.mpm import MPMConf, MPMSimulator
+    from unidom_torch.engine.primitives import create_primitive
+
+    worst = 0.0
+    rng = np.random.default_rng(6)
+    for name, (kwargs, scene, pc) in CONFIGS.items():
+        sim = MPMSimulator(MPMConf(**kwargs, task="t"), 2, use_position_control=pc,
+                           device="cpu")
+        s = sim.reset(scene(sim, lambda *a, **k: create_primitive(*a, **k, device="cpu")))
+        s = s.replace(v=torch.from_numpy(0.2 * rng.standard_normal(s.v.shape)).float(),
+                      C=torch.from_numpy(0.5 * rng.standard_normal(s.C.shape)).float())
+        n_prim = len(s.primitives)
+        a = np.zeros((2, 6 * n_prim), np.float32)
+        a[:, :6] = [[0.3, 0.0, 0.1, 0.0, 0.0, 0.05], [0.2, 0.0, -0.1, 0.05, 0.0, 0.0]]
+        s, a = cs.mpm_cast(s, dtype), torch.from_numpy(a).to(dtype)
+        ksim = _as(sim, dtype)
+        with torch.no_grad():
+            plain = sim._step_plain(s, a)
+            for call in (1, 2):
+                t0 = time.perf_counter()
+                fields, frame, vw = mbk._big_inputs(ksim, ksim.prepare(s, a))
+                k = mbk._rebuild(s, mbk._forward(ksim, fields, frame, vw))
+                nonzero = [int(t.count_nonzero()) for t in
+                           mbk.zeroed_parts(ksim, mbk._ROLLOUT_SCRATCH[ksim][1])]
+                worst = max(worst, compare_fwd(
+                    f"K3-fwd rollout {name} P={sim.n_particles}, call {call}, kept scratch "
+                    f"entries not 0 after it {nonzero}, {time.perf_counter() - t0:.1f} s",
+                    k, plain))
+                if any(nonzero):
+                    raise SystemExit(f"K3-fwd's rollout left its kept scratch not 0 on {name}")
+    return worst
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", nargs="+", choices=("k2", "k3"))
+    ap.add_argument("what", nargs="+", choices=("k2", "k3", "k2fwd", "k3fwd"))
     ap.add_argument("--f64", action="store_true", help="every float a double")
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "host_cuda")
+    ap.add_argument("--poison", type=float, nargs="?", const=float("nan"), default=None,
+                    help="the wrappers' torch.empty floats start as this value (NaN if none is "
+                         "given), their ints as 0x7f7f7f7f")
+    ap.add_argument("--smem-fill", type=lambda s: int(s, 0), default=0xCD,
+                    help="every byte of a block's shared memory at launch (0x7f: a large "
+                         "positive float)")
     ap.add_argument("--steps", type=int, default=4, help="substeps of K2's cut macro step")
     ap.add_argument("--clusters", type=int, nargs="+", default=[1, 2, 8],
                     help="K2-bwd's cluster sizes on shape_rope")
+    ap.add_argument("--fwd-clusters", type=int, nargs="+", default=[1, 2, 4, 8],
+                    help="K2-fwd's cluster sizes on shape_rope")
     args = ap.parse_args()
     torch.set_num_threads(4)
-    libs = {src: build(src, args.out, args.f64) for src in ("mpm_step.cu", "mpm_big_step.cu")}
-    mk, mbk = wrappers(libs, args.f64)
+    libs = {src: build(src, args.out, args.f64, args.smem_fill)
+            for src in ("mpm_step.cu", "mpm_big_step.cu")}
+    if args.poison is not None:
+        POISON[0] = args.poison
+    mk, mbk = wrappers(libs, args.f64, args.poison is not None)
     dtype = torch.float64 if args.f64 else torch.float32
     worst = 0.0
     if "k2" in args.what:
         worst = max(worst, rehearse_k2(mk, dtype, args.steps, args.clusters))
     if "k3" in args.what:
         worst = max(worst, rehearse_k3(mbk, dtype))
+    if "k2fwd" in args.what:
+        worst = max(worst, rehearse_k2fwd(mk, dtype, args.steps, args.fwd_clusters))
+    if "k3fwd" in args.what:
+        worst = max(worst, rehearse_k3fwd(mbk, dtype))
     print(f"largest relative error: {worst:.3e}")
 
 

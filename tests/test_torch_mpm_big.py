@@ -30,6 +30,8 @@ from unidom_torch.engine.primitives import create_primitive
 from unidom_torch.envs.mpm_tasks import PourSoupConf, ShapeElastoPlasticConf, WhipRopeConf
 from unidom_torch.ops.cuda import _build
 from unidom_torch.ops.cuda.mpm_big_kernel import (
+    bin_scratch,
+    bwd_scratch,
     check_supported_big,
     list_capacity,
     mpm_big_step,
@@ -188,10 +190,70 @@ def test_big_kernel_sizes():
     sim = _sim_of(PourSoupConf, 7694, ["container"] * 2)
     assert list_capacity(sim) == 27 * 7694  # fewer than the 1,048,576 cells
     per_env = scratch_bytes(sim, 1)
-    assert 20 * 2**20 < per_env < 24 * 2**20  # the float4 grid and marks, 20 MB
+    # the float4 grid and marks, 20 MB; a rollout's P2G sums in float, 16 MB;
+    # the sort by bin, 4.6 MB
+    assert 40 * 2**20 < per_env < 44 * 2**20
     assert scratch_bytes(sim, 64) == 64 * per_env
     with pytest.raises(NotImplementedError, match="65535 envs"):
         check_supported_big(sim, 65536)
+
+
+@pytest.mark.parametrize("name, conf, P, sdfs", [
+    ("pour_soup", PourSoupConf, 7694, ["container"] * 2),
+    ("shape_elasto_plastic", ShapeElastoPlasticConf, 23940, ["box"]),
+])
+def test_big_scratch_counts_the_sort_in_a_rollout(name, conf, P, sdfs):
+    """A rollout sorts by bin as a gradient's forward does: its scratch
+    counts the sort's ints (each bin's counter, the bin list, each
+    particle's bin, rank and slot) and P2G's float sums (16 B per cell); a
+    gradient's counts the double sums (32 B per cell) instead of the float
+    ones."""
+    sim = _sim_of(conf, P, sdfs)
+    rx, ry, rz = conf.res
+    cells = rx * ry * rz
+    n_ints, n_keys, bin_cap = bin_scratch(sim)
+    assert n_keys == (rx + 2) * (ry + 2) * (rz + 2) + 1 and bin_cap == min(P, n_keys)
+    assert n_ints == n_keys + 1 + bin_cap + 3 * P
+    rollout = scratch_bytes(sim, 1)
+    base = (20 * cells + 4 * list_capacity(sim) + 4 + 8 * 25 * P
+            + 4 * (conf.steps + 1) * len(sdfs) * 14)
+    assert rollout == base + 4 * n_ints + 16 * cells
+    K = 4
+    floats, doubles = bwd_scratch(sim)
+    assert scratch_bytes(sim, 3, K) == 3 * (
+        base + 4 * n_ints + 32 * cells + 4 * -(-conf.steps // K) * 25 * P + 8 * 25 * P
+        + 4 * floats + 8 * doubles + 4 + 4 * K * 25 * P)
+
+
+def test_rollout_keeps_its_zeroed_scratch_per_simulator():
+    """A rollout's float sums, marks and sort counters are zeroed once per
+    simulator, batch size, device and stream and kept (K3-fwd leaves them at
+    0), one set per simulator, dropped with it; a rollout takes no gacc or
+    mark of the caller's."""
+    import gc
+
+    from unidom_torch.ops.cuda import mpm_big_kernel as mbk
+
+    conf = MPMConf(**{**CONFIGS["sigma_clip"][0], "task": "t"})
+    sim = _sim_of(conf, 78, ["box"])
+    cpu = torch.device("cpu")
+    first = mbk._rollout_scratch(sim, 2, cpu, (2, cpu, None))
+    cells = conf.res[0] * conf.res[1] * conf.res[2]
+    n_ints, n_keys, _ = bin_scratch(sim)
+    assert [tuple(t.shape) for t in first] == [(2, cells, 4), (2, cells), (2 * n_ints,)]
+    assert all(not t.any() for t in first)
+    assert all(a is b for a, b in zip(mbk._rollout_scratch(sim, 2, cpu, (2, cpu, None)), first))
+    counters = mbk.zeroed_parts(sim, first)
+    assert counters[2].shape == (2 * (n_keys + 1),)
+    other = mbk._rollout_scratch(sim, 3, cpu, (3, cpu, None))
+    assert other[0].shape[0] == 3 and mbk._ROLLOUT_SCRATCH[sim][0] == (3, cpu, None)
+    assert len([k for k in mbk._ROLLOUT_SCRATCH.keys() if k is sim]) == 1
+    with pytest.raises(ValueError, match="takes no gacc or mark"):
+        mbk._call_big(sim, None, None, None, what=0, mark=torch.zeros(2, cells))
+    n_kept = len(mbk._ROLLOUT_SCRATCH)
+    del sim
+    gc.collect()
+    assert len(mbk._ROLLOUT_SCRATCH) == n_kept - 1
 
 
 def test_cpu_step_launches_no_kernel_and_gradient_on_cuda_reaches_k3_bwd(monkeypatch):

@@ -3,8 +3,9 @@ degenerate-safe backward, ``scrub_grad``, the plain macro step's VJP (the
 MPM backward kernel's plain version) against ``jax.vjp`` of the JAX oracle
 step under position control and collision, over the four materials and both
 transfers, the same on whip_rope's scene, and whip_rope's ``grad_test``;
-and K2-bwd's launch sizing (``launch_config``), which refuses in Python a
-configuration beyond the card.
+and K2-fwd's and K2-bwd's launch sizing (``fwd_launch_config``,
+``launch_config``), which refuses in Python a configuration beyond the
+card.
 Inputs and cotangents are made with numpy from a seed and fed to both
 sides."""
 
@@ -366,6 +367,66 @@ def test_k2_bwd_launch_config(B, P, res, steps, cluster, threads):
     assert mpm_kernel.launch_config(B, P, cells, steps, 1, cluster=cluster) == cfg
     assert mpm_kernel.smem_bytes(P, cells, steps, 1, True) == (
         4 * (50 * P + (steps + 1) * 7) + 4 * min(27 * P, cells) + 8 + 24 * P)
+
+
+@pytest.mark.parametrize("B, P, res, steps, cluster, threads", [
+    # whip_rope at 1024 envs fills the card: a cluster of 1, 96 threads for
+    # its 67 particles
+    (1024, 67, (32, 32, 32), 70, 1, 96),
+    # shape_rope: the cluster doubles while the envs' CTAs fit 132 SMs in
+    # one wave, one particle per thread
+    (16, 582, (64, 6, 64), 133, 8, 96),
+    (64, 582, (64, 6, 64), 133, 2, 320),
+    (256, 582, (64, 6, 64), 133, 1, 608),
+])
+def test_k2_fwd_launch_config(B, P, res, steps, cluster, threads):
+    cells = res[0] * res[1] * res[2]
+    cfg = mpm_kernel.fwd_launch_config(B, P, cells, steps, 1)
+    assert (cfg.cluster, cfg.threads) == (cluster, threads)
+    assert cfg.per_cta == -(-P // cluster) and cfg.per_cta * cfg.cluster >= P
+    assert cfg.per_cta <= cfg.threads <= mpm_kernel.FWD_MAX_THREADS and cfg.threads % 32 == 0
+    assert cfg.list_cap == min(27 * cfg.per_cta, cells)
+    assert cfg.smem == mpm_kernel.smem_bytes(cfg.per_cta, cells, steps, 1, False)
+    assert cfg.smem + mpm_kernel.FWD_STATIC_SMEM <= mpm_kernel.SMEM_PER_BLOCK
+    assert cfg.cluster == 1 or B * cfg.cluster <= mpm_kernel.N_SMS
+    assert cfg.cluster == mpm_kernel.launch_config(B, P, cells, steps, 1).cluster
+    assert cfg.K == mpm_kernel.checkpoint_stride(B, P, steps)
+    # the same launch with the cluster given, and the forward's shared memory
+    assert mpm_kernel.fwd_launch_config(B, P, cells, steps, 1, cluster=cluster) == cfg
+    assert mpm_kernel.smem_bytes(P, cells, steps, 1, False) == (
+        4 * (25 * P + (steps + 1) * 7) + 4 * min(27 * P, cells))
+
+
+def test_k2_fwd_launch_config_refuses_before_loading_the_library(monkeypatch):
+    """A configuration no cluster of 8 CTAs holds raises in Python, naming
+    the sizes, before the kernels' library is built or loaded, also from
+    launch (K2-fwd without history) on a simulator of such a configuration."""
+
+    def no_library(source):
+        raise AssertionError(f"{source} was loaded")
+
+    monkeypatch.setattr(mpm_kernel, "load_library", no_library)
+    mpm_kernel._lib.cache_clear()
+    with pytest.raises(ValueError, match=r"K2-fwd on 582 particles, 24576 grid cells, 8000 "
+                                         r"substeps and 1 primitives needs 239724 bytes of "
+                                         r"shared memory per CTA in a cluster of 8 \(73 "
+                                         r"particles each\)"):
+        mpm_kernel.fwd_launch_config(64, 582, 64 * 6 * 64, 8000, 1)
+    with pytest.raises(ValueError, match="a cluster has 1 to 8 CTAs"):
+        mpm_kernel.fwd_launch_config(64, 582, 64 * 6 * 64, 133, 1, cluster=16)
+    steps = 8300  # 232,428 B of frames
+    conf = dataclasses.replace(GRAD_TEST_CONF, steps=steps)
+    sim = MPMSimulator(conf, 1, use_position_control=True, device="cpu")
+    state = sim.add_box(None, size=(0.25, 0.06, 0.06), init_pos=(0.5, 0.08, 0.5),
+                        material=ELASTIC, density=1.5)
+    state.primitives.append(create_primitive(steps, 0.2, 666.0, [0.5] * 3, (0.03,) * 3,
+                                             (0.5, 0.06, 0.46), device="cpu"))
+    sim.register_primitive_sdf("box")
+    state = sim.reset(state)
+    P = sim.n_particles
+    with pytest.raises(ValueError, match=f"K2-fwd on {P} particles, 4096 grid cells, {steps} "
+                                         "substeps and 1 primitives needs"):
+        mpm_kernel.launch(sim, sim.prepare(state, torch.zeros((1, 6))))
 
 
 def test_k2_bwd_launch_config_refuses_before_loading_the_library(monkeypatch):

@@ -37,11 +37,10 @@
 // ~0.31 ms at 67 TFLOP/s. K3-bwd: 10,071 operations per particle-substep
 // (the forward once and its adjoint, as K2-bwd) and the touched cells' grid
 // ops and their adjoint. Every phase reads and writes the particle state in
-// device memory and the scatters add with atomics in device memory; with a
-// gradient the sums are doubles, whose atomics on a crowded cell
-// (shape_elasto_plastic: ~340 particle shares per touched cell and
-// substep) serialise in L2, so the gradient's P2G first sums over the
-// particles of a bin (below).
+// device memory and the scatters add with atomics in device memory, whose
+// atomics on a crowded cell (shape_elasto_plastic: ~340 particle shares per
+// touched cell and substep; pour_soup's water in the bowls) serialise in
+// L2, so P2G first sums over the particles of a bin (below).
 //
 // Design:
 //   - Many blocks per env: the particle phases run on a grid of
@@ -50,21 +49,37 @@
 //     warp's loads of one component coalesce; a pack launch copies the
 //     inputs in (and computes the primitives' frames), an unpack launch
 //     copies the outputs and the trajectory rows out.
-//   - A rollout (no gradient): four launches per substep; a launch boundary
-//     is the only barrier between the blocks of an env:
-//       1. zero the grid and marks under every particle's stencil (and the
-//          env's touched-cell count);
-//       2. F update, SVD, return map and stress, then P2G by float
-//          atomicAdd into the float4 grid; the first mark of a node appends
-//          it to the env's touched list, by an atomic on the env's count;
+//   - Four launches per substep; a launch boundary is the only barrier
+//     between the blocks of an env. The particles are sorted by bin, the
+//     base node of their stencil (bin_key), each substep: each particle is
+//     counted into its bin (an atomic on a (B, bins) counter, whose first
+//     count appends the bin to the env's bin list), the pack launch for the
+//     first substep, G2P's launch for the next. Then:
+//       1. the bins' scan: one block per env turns the listed bins' counts
+//          into offsets (an exclusive scan) and writes the permutation;
+//       2. F update, SVD, return map and stress, then P2G, the threads
+//          taking the particles in bin order: the lanes of a warp that share
+//          a bin share all 27 nodes, sum each node's shares over the warp by
+//          shuffles (WarpScatter in mpm_device.cuh) and add them by one
+//          atomic per bin and warp; the first mark of a node appends it to
+//          the env's touched list, by an atomic on the env's count;
 //       3. the grid ops, one thread per touched cell (a grid-stride loop over
 //          the env's list; each block loads the substep's primitives into
 //          shared memory), from the sums into the float4 grid of velocities
 //          (and mass) that G2P reads;
-//       4. G2P, advection and J.
-//     Launches rather than one cooperative kernel: pour_soup at 32 envs is
-//     992 blocks, more than the card may hold resident for a grid-wide
-//     barrier at this register count.
+//       4. G2P, advection and J, and the next substep's count.
+//     The P2G launch resets the counters it read, the scan the bin list, so
+//     nothing needs clearing between launches. Launches rather than one
+//     cooperative kernel: pour_soup at 32 envs is 992 blocks, more than the
+//     card may hold resident for a grid-wide barrier at this register count.
+//   - A rollout (no gradient) sums P2G in float into a float4 grid of sums
+//     apart from the one G2P reads: pour_soup's water pools in the bowls,
+//     and one float atomic per particle and node (the first design)
+//     serialised in L2 on the crowded cells; with the bin's sum first, one
+//     per bin and warp. The sums and marks start at 0 and the grid ops put
+//     each touched cell back to 0 after reading it, so no launch zeroes the
+//     27 nodes of every particle's stencil (on pour_soup at 32 envs that
+//     zeroing took as long as P2G).
 //   - With a gradient (K3-fwd with checkpoints, K3-seg, K3-bwd's recompute:
 //     one code path), P2G sums in double, so that its result does not
 //     depend on the order of the sums at float32's precision: K3-bwd
@@ -73,22 +88,11 @@
 //     order, shape_elasto_plastic's primitive cotangents, sums of
 //     1/dt-amplified terms that cancel, landed 2.3x further from float64
 //     than the float32 plain step's; H100, chip_smoke.py's
-//     [big-bwd-parity]). The particles are sorted by bin, the base node of
-//     their stencil (bin_key), each substep: zeroing the grid under a
-//     particle's stencil also counts it into its bin (an atomic on a
-//     (B, bins) counter, whose first count appends the bin to the env's bin
-//     list); one block per env turns the listed bins' counts into offsets
-//     (an exclusive scan) and writes the permutation; P2G's threads then
-//     take the particles in that order, so the lanes of a warp that share a
-//     bin share all 27 nodes, sum each node's shares over the warp by
-//     shuffles in double (WarpScatter in mpm_device.cuh) and add them by one
-//     double atomic per bin and warp. shape_elasto_plastic holds ~27
-//     particles per bin, so ~10x fewer atomics land on each cell. G2P's
-//     adjoint scatters the grid cotangent by the same permutation and
-//     scheme. The P2G launch resets the counters it read, the scan the bin
-//     list, so nothing needs clearing between launches. G2P's launch zeroes
-//     and counts the next substep's stencils (and saves its carry), so a
-//     substep is four launches here too: the scan, P2G, the grid ops, G2P.
+//     [big-bwd-parity]). shape_elasto_plastic holds ~27 particles per bin,
+//     so ~10x fewer double atomics land on each cell. Counting a particle
+//     into its bin first zeroes the double sums and marks under its
+//     stencil. G2P's adjoint scatters the grid cotangent by the same
+//     permutation and scheme.
 //   - No windows. The Pallas kernel sorts particles by cell each macro step
 //     so that its x/y windows cover each 128-particle chunk, and drops
 //     support outside a window; a scatter needs no window. Nodes outside the
@@ -112,9 +116,10 @@
 //     kinematics' adjoint, one thread per primitive. The per-particle Lame
 //     and yield cotangents stay in double over the substeps (their terms
 //     cancel to ~1e-2 of their size), as in K2-bwd.
-//   - Scratch per env beside K3-fwd's: P2G's double sums (32 B per cell),
-//     the bins' counters (4 B per bin) and list, each particle's bin, rank
-//     in its bin and sorted slot (12 B); K3-bwd's: the grid cotangent's
+//   - Scratch per env: the float4 grid and marks (20 B per cell), the
+//     bins' counters (4 B per bin) and list, each particle's bin, rank in
+//     its bin and sorted slot (12 B); with a gradient P2G's double sums (32
+//     B per cell); K3-bwd's: the grid cotangent's
 //     double sums (32 B per cell) and float4 (16 B), each touched cell's
 //     momentum and mass before the grid ops (16 B per list slot), the
 //     carry's cotangent and the per-particle accumulators, and with K > 1 a
@@ -138,6 +143,7 @@ constexpr int N_EACC = N_ACC + 3;  // an env's accumulators: the primitives', gf
 // g.mark are the per-env grid and marks, (B, cells)).
 struct BigArgs {
   GridAcc* gacc;       // (B, cells): P2G's momentum and mass in double, or null
+  float4* fsum;        // (B, cells): a rollout's P2G sums in float, or null
   float* ps;           // the working carry of env b at ps + b * ps_stride, (N_COMP, P)
   size_t ps_stride;
   float* rows;         // (B, steps + 1, n_prim, ROW): the primitives' frames
@@ -179,13 +185,14 @@ struct BigBwd {
 
 __device__ __forceinline__ size_t env_cells(const Args& g) { return (size_t)g.rx * g.ry * g.rz; }
 
-// P2G's sums: in the float4 grid itself (a rollout), or in double (the
-// gradient's forward, K3-seg and K3-bwd)
+// P2G's sums: in float (a rollout), or in double (the gradient's forward,
+// K3-seg and K3-bwd); apart from the grid G2P reads, since G2P's launch
+// zeroes the next substep's sums while other blocks still read that grid
 template <class G>
 __device__ __forceinline__ G* sums(const Args& g, const BigArgs& a);
 template <>
 __device__ __forceinline__ float4* sums<float4>(const Args& g, const BigArgs& a) {
-  return g.grid;
+  return a.fsum;
 }
 template <>
 __device__ __forceinline__ GridAcc* sums<GridAcc>(const Args& g, const BigArgs& a) {
@@ -200,13 +207,21 @@ __device__ __forceinline__ float* env_rows(const Args& g, const BigArgs& a, int 
   return a.rows + (size_t)b * (g.steps + 1) * g.n_prim * ROW;
 }
 
-// With a gradient: the double sums (and the cotangent's, dsum, when set)
-// and marks under particle p's stencil at x to 0, and p counted into its bin
+// Particle p at x counted into its bin, with a gradient (G = GridAcc) after
+// P2G's double sums (and the cotangent's, dsum, when set) and the marks under
+// its stencil are set to 0. A rollout's float sums (G = float4) and marks
+// start at 0 (the wrapper zeroes them once) and the grid ops put each touched
+// cell back to 0 once they have read it: a rollout's substep zeroes each
+// touched cell once, not 27 nodes per particle. With a gradient the
+// stencils' zeroing stays as K3-bwd's recompute expects it.
+template <class G>
 __device__ __forceinline__ void zero_and_count(const float* x, int p, const Args& g,
                                                const BigArgs& a, int b, GridAcc* dsum) {
-  const size_t cells = env_cells(g);
-  zero_stencil(x, g, a.gacc + (size_t)b * cells, g.mark + (size_t)b * cells,
-               dsum ? dsum + (size_t)b * cells : dsum);
+  if constexpr (std::is_same<G, GridAcc>::value) {
+    const size_t cells = env_cells(g);
+    zero_stencil(x, g, a.gacc + (size_t)b * cells, g.mark + (size_t)b * cells,
+                 dsum ? dsum + (size_t)b * cells : dsum);
+  }
   Stencil st;
   stencil(x, g.inv_dx, st);
   const int key = bin_key(st, g);
@@ -223,8 +238,9 @@ __device__ __forceinline__ void save_carry(const float* ps, int P, int p, const 
 }
 
 // the inputs into the carry; block 0 of each env computes its frames. With
-// `zero` (a gradient's first substep), also zero and count the stencils and
-// save the carry where a.save is set.
+// `zero` (K3-fwd's first substep), also save the carry where a.save is set
+// and zero and count as zero_and_count<G> does.
+template <class G>
 __global__ void __launch_bounds__(NT) big_pack_kernel(Args g, BigArgs a, int zero) {
   const int b = blockIdx.y, P = g.P;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
@@ -244,14 +260,13 @@ __global__ void __launch_bounds__(NT) big_pack_kernel(Args g, BigArgs a, int zer
   if (!zero) return;
   if (a.save) save_carry(ps, P, p, a, b);
   const float x[3] = {ps[IX * P + p], ps[(IX + 1) * P + p], ps[(IX + 2) * P + p]};
-  zero_and_count(x, p, g, a, b, nullptr);
+  zero_and_count<G>(x, p, g, a, b, nullptr);
 }
 
-// 1. the carry copied in from a.src and out to a.save where they are set,
-// then the grid (and its cotangent's sums, when dsum is set) and marks
-// under each particle's stencil to 0; with a gradient (G = GridAcc) and
-// `count`, each particle counted into its bin
-template <class G>
+// 1. with a gradient: the carry copied in from a.src and out to a.save where
+// they are set, then P2G's double sums (and the grid cotangent's, when dsum
+// is set) and the marks under each particle's stencil to 0; with `count`,
+// each particle counted into its bin
 __global__ void __launch_bounds__(NT) big_zero_kernel(Args g, BigArgs a, GridAcc* dsum,
                                                       int count) {
   const int b = blockIdx.y, P = g.P;
@@ -265,18 +280,16 @@ __global__ void __launch_bounds__(NT) big_zero_kernel(Args g, BigArgs a, GridAcc
   }
   if (a.save) save_carry(ps, P, p, a, b);
   const float x[3] = {ps[IX * P + p], ps[(IX + 1) * P + p], ps[(IX + 2) * P + p]};
-  if constexpr (std::is_same<G, GridAcc>::value) {
-    if (count) {
-      zero_and_count(x, p, g, a, b, dsum);
-      return;
-    }
+  if (count) {
+    zero_and_count<GridAcc>(x, p, g, a, b, dsum);
+    return;
   }
   const size_t cells = env_cells(g);
-  zero_stencil(x, g, sums<G>(g, a) + (size_t)b * cells, g.mark + (size_t)b * cells,
+  zero_stencil(x, g, a.gacc + (size_t)b * cells, g.mark + (size_t)b * cells,
                dsum ? dsum + (size_t)b * cells : dsum);
 }
 
-// 1b. with a gradient: the bins' counts into offsets (an exclusive scan over
+// 1b. the bins' counts into offsets (an exclusive scan over
 // the env's bin list), the permutation of the particles into bin order;
 // the bin list and the touched count back to 0. One block per env.
 __global__ void __launch_bounds__(BIN_NT) big_bin_kernel(Args g, BigArgs a) {
@@ -326,22 +339,11 @@ __global__ void __launch_bounds__(BIN_NT) big_bin_kernel(Args g, BigArgs a) {
   }
 }
 
-// 2. stress and P2G (a rollout: float atomics into the float4 grid); F
-// after the return map back into the carry when write_F
-__global__ void __launch_bounds__(NT) big_p2g_kernel(Args g, BigArgs a, int write_F) {
-  const int b = blockIdx.y, P = g.P;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  float* ps = env_carry(a, b);
-  const size_t cells = env_cells(g);
-  AtomicScatter<float4> s{g.grid + (size_t)b * cells, g.mark + (size_t)b * cells,
-                          a.touched + (size_t)b * a.list_cap, a.n_touched + b};
-  p2g_particle(ps, write_F ? ps : nullptr, P, p, true, g, b, s);
-}
-
-// 2'. the same with a gradient: the particles in bin order, each node's
-// shares summed over a bin's lanes before one double atomic; each
-// particle's bin counter back to 0
+// 2. stress and P2G, the particles in bin order, each node's shares summed
+// over a bin's lanes before one atomic into G's sums; F after the return
+// map back into the carry when write_F; each particle's bin counter back
+// to 0
+template <class G>
 __global__ void __launch_bounds__(NT) big_p2g_sorted_kernel(Args g, BigArgs a, int write_F) {
   const int b = blockIdx.y, P = g.P;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -351,14 +353,15 @@ __global__ void __launch_bounds__(NT) big_p2g_sorted_kernel(Args g, BigArgs a, i
   if (live) a.bins[(size_t)b * a.n_keys + a.key[(size_t)b * P + p]] = 0;
   float* ps = env_carry(a, b);
   const size_t cells = env_cells(g);
-  WarpScatter s{a.gacc + (size_t)b * cells, g.mark + (size_t)b * cells,
-                a.touched + (size_t)b * a.list_cap, a.n_touched + b, 0u, false};
+  WarpScatter<G> s{sums<G>(g, a) + (size_t)b * cells, g.mark + (size_t)b * cells,
+                   a.touched + (size_t)b * a.list_cap, a.n_touched + b, 0u, false};
   p2g_particle(ps, write_F ? ps : nullptr, P, p, live, g, b, s);
 }
 
 // 3. the grid ops of substep f on the env's touched cells, from P2G's sums
 // (rounded to float) into the float4 grid that G2P reads; pre, when set,
-// keeps each cell's momentum and mass before them
+// keeps each cell's momentum and mass before them; a rollout's float sums
+// and marks back to 0 (see zero_and_count)
 template <class G>
 __global__ void __launch_bounds__(NT) big_grid_kernel(Args g, BigArgs a, int f, float4* pre) {
   __shared__ Prim prims[MAX_PRIM];
@@ -368,20 +371,26 @@ __global__ void __launch_bounds__(NT) big_grid_kernel(Args g, BigArgs a, int f, 
   const int n = a.n_touched[b];
   const int* touched = a.touched + (size_t)b * a.list_cap;
   const size_t cells = env_cells(g);
-  const G* sum = sums<G>(g, a) + (size_t)b * cells;
+  G* sum = sums<G>(g, a) + (size_t)b * cells;
+  int* mark = g.mark + (size_t)b * cells;
   float4* grid = g.grid + (size_t)b * cells;
   const float gf = g.ground_friction[(size_t)b * g.gf_sb];
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
     const int cell = touched[i];
     const float4 gv = grid_load(sum, cell);
+    if constexpr (std::is_same<G, float4>::value) {
+      sum[cell] = make_float4(0.f, 0.f, 0.f, 0.f);
+      mark[cell] = 0;
+    }
     if (pre) pre[(size_t)b * a.list_cap + i] = gv;
     grid[cell] = grid_op_value(cell, gv, prims, gf, g);
   }
 }
 
 // 4. G2P, advection and J; then the carry to a.save where set, and with
-// `next` (a gradient's substep that another follows) the next substep's
-// stencils zeroed and counted
+// `next` (a substep that another follows) the next substep's stencils in
+// G's sums zeroed and counted
+template <class G>
 __global__ void __launch_bounds__(NT) big_g2p_kernel(Args g, BigArgs a, int next) {
   const int b = blockIdx.y, P = g.P;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
@@ -391,7 +400,7 @@ __global__ void __launch_bounds__(NT) big_g2p_kernel(Args g, BigArgs a, int next
   if (a.save) save_carry(ps, P, p, a, b);
   if (next) {
     const float x[3] = {ps[IX * P + p], ps[(IX + 1) * P + p], ps[(IX + 2) * P + p]};
-    zero_and_count(x, p, g, a, b, nullptr);
+    zero_and_count<G>(x, p, g, a, b, nullptr);
   }
 }
 
@@ -474,7 +483,7 @@ __global__ void __launch_bounds__(NT) big_g2p_bwd_kernel(Args g, BigArgs a, BigB
   const bool live = i < P;
   const int p = live ? a.perm[(size_t)b * P + i] : 0;
   const size_t cells = env_cells(g);
-  WarpScatter s{w.dsum + (size_t)b * cells, nullptr, nullptr, nullptr, 0u, false};
+  WarpScatter<GridAcc> s{w.dsum + (size_t)b * cells, nullptr, nullptr, nullptr, 0u, false};
   g2p_adjoint_particle(env_carry(a, b), w.cot + (size_t)b * N_COMP * P, P, p, live, g,
                        g.grid + (size_t)b * cells, s);
 }
@@ -541,7 +550,7 @@ __global__ void __launch_bounds__(NT) big_particle_bwd_kernel(Args g, BigArgs a,
   if (next) {
     const float* c = next + (size_t)b * next_stride;
     const float x[3] = {c[IX * P + p], c[(IX + 1) * P + p], c[(IX + 2) * P + p]};
-    zero_and_count(x, p, g, a, b, w.dsum);
+    zero_and_count<GridAcc>(x, p, g, a, b, w.dsum);
   }
 }
 
@@ -591,15 +600,17 @@ __global__ void __launch_bounds__(NT) big_bwd_finish_kernel(Args g, BigBwd w, in
 template <typename F>
 cudaError_t kernel_attributes(int which, F&& with) {
   switch (which) {
-    case 0: return with((const void*)big_zero_kernel<GridAcc>);
+    case 0: return with((const void*)big_zero_kernel);
     case 1: return with((const void*)big_bin_kernel);
-    case 2: return with((const void*)big_p2g_sorted_kernel);
+    case 2: return with((const void*)big_p2g_sorted_kernel<GridAcc>);
     case 3: return with((const void*)big_grid_kernel<GridAcc>);
-    case 4: return with((const void*)big_g2p_kernel);
+    case 4: return with((const void*)big_g2p_kernel<GridAcc>);
     case 5: return with((const void*)big_g2p_bwd_kernel);
     case 6: return with((const void*)big_grid_bwd_kernel);
     case 7: return with((const void*)big_particle_bwd_kernel);
-    case 8: return with((const void*)big_p2g_kernel);
+    case 8: return with((const void*)big_p2g_sorted_kernel<float4>);
+    case 9: return with((const void*)big_grid_kernel<float4>);
+    case 10: return with((const void*)big_g2p_kernel<float4>);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -611,9 +622,10 @@ extern "C" {
 const char* unidom_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // What the card makes of K3's kernel `which` (0 the zero and count launch,
-// 1 the bins' scan, 2 P2G with a gradient, 3 the grid ops, 4 G2P, 5 G2P's
+// 1 the bins' scan, 2 P2G with a gradient, 3 its grid ops, 4 its G2P, 5 G2P's
 // adjoint, 6 the grid ops' adjoint, 7 the particle adjoint, 8 a rollout's
-// P2G): out = registers per thread, local memory per thread (bytes), static
+// P2G, 9 its grid ops, 10 its G2P): out = registers per thread, local
+// memory per thread (bytes), static
 // shared memory (bytes), threads per block and blocks per SM (the
 // occupancy API). Returns a cudaError_t.
 int mpm_big_step_kernel_info(int which, int device, int* out) {
@@ -632,22 +644,24 @@ int mpm_big_step_kernel_info(int which, int device, int* out) {
 }
 
 // K3's launches on the stream, counted into *n_launches. what 0: K3-fwd,
-// one macro step (4 * steps + 2 launches), writing the carry of every K-th
-// substep to hist (B, ceil(steps / K), N_COMP, P) and summing P2G in gacc
-// (B, cells, 4 doubles) in bin order, unless hist is null (a rollout: P2G
-// sums in the float4 grid by float atomics; gacc may be null). what 1:
+// one macro step (4 * steps + 2 launches), P2G in bin order, writing the
+// carry of every K-th substep to hist (B, ceil(steps / K), N_COMP, P) and
+// summing P2G in gacc (B, cells, 4 doubles), unless hist is null (a
+// rollout: P2G sums in fsum (B, cells, 4 floats); fsum and mark must be 0
+// on entry and are 0 again on exit). what 1:
 // K3-seg alone, segment `segment` from hist into seg_out (B, L, N_COMP, P).
 // what 2: K3-bwd from the history (with K3-seg into seg_out (B, K, N_COMP,
 // P) per segment when K > 1), the output cotangents bwd_in (dx, dv, dC, dF,
 // dJ, dpos, drot) and into bwd_out (the cotangents of x, v, C, F, J, mu,
 // lamda, yield_stress, ground friction, frame, vw). what 3: the gradient's
 // P2G of carry `segment` of hist alone, into gacc and mark (the grid that
-// K3-bwd recomputes). grid (B, cells, 4) and mark (B, cells) are scratch
-// that needs no clearing; ps (B, N_COMP, P), rows (B, steps + 1, n_prim,
-// ROW), touched (B, list_cap) and n_touched (B) likewise; with a gradient,
-// bin_ints (ops/cuda/mpm_big_kernel.py bin_scratch: per env the bins'
-// counters n_keys, n_bin_list 1, bin_list bin_cap, key, rank and perm P
-// each) must be 0 on entry and is 0 again on exit; K3-bwd's scratch:
+// K3-bwd recomputes). grid (B, cells, 4) is scratch that needs no
+// clearing, and so is mark (B, cells) with a gradient; ps (B, N_COMP, P), rows (B, steps + 1, n_prim,
+// ROW), touched (B, list_cap) and n_touched (B) likewise; bin_ints
+// (ops/cuda/mpm_big_kernel.py bin_scratch: per env the bins' counters
+// n_keys, n_bin_list 1, bin_list bin_cap, key, rank and perm P each): in
+// every case its counters (bins, n_bin_list) must be 0 on entry and are 0
+// again on exit, and the rest needs no clearing; K3-bwd's scratch:
 // bwd_floats, per env 4 cells + 4 list_cap + N_COMP P + 7 MAX_PRIM, and
 // bwd_doubles, per env 4 cells + 3 P + N_EACC, and bwd_ints, one per env.
 // grid_blocks is the number of blocks per env of the grid-op launches.
@@ -657,7 +671,7 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
                         const float* ground_friction, int gf_sb, const float* hardness,
                         const int* material, const float* prim_frame, const float* prim_vw,
                         float* x_out, float* v_out, float* C_out, float* F_out, float* J_out,
-                        float* traj_pos, float* traj_rot, float* grid, double* gacc, int* mark,
+                        float* traj_pos, float* traj_rot, float* grid, double* gacc, float* fsum, int* mark,
                         float* ps,
                         float* rows, int* touched, int* n_touched, int list_cap, int grid_blocks,
                         int B, int P, int n_prim, int steps, int rx, int ry, int rz, int n_grid,
@@ -672,8 +686,9 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
   if (B < 1 || B > 65535 || P < 1 || n_prim < 0 || n_prim > MAX_PRIM || steps < 1 ||
       cells < 1 || cells > 0x7fffffffL || list_cap < 1 || list_cap > cells || grid_blocks < 1 ||
       K < 1 || K > steps || what < 0 || what > 3 || (what > 0 && !hist) || (hist && !gacc) ||
-      (hist && (!bin_ints || n_keys != (rx + 2) * (ry + 2) * (rz + 2) + 1 ||
-                bin_cap != (P < n_keys ? P : n_keys))))
+      (!hist && !fsum) ||
+      !bin_ints || n_keys != (rx + 2) * (ry + 2) * (rz + 2) + 1 ||
+      bin_cap != (P < n_keys ? P : n_keys))
     return (int)cudaErrorInvalidValue;
   Args g;
   g.x = x; g.v = v; g.C = C; g.F = F; g.J = J;
@@ -694,16 +709,17 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
   const int n_ckpt = (steps + K - 1) / K;
   BigArgs a;
   a.gacc = (GridAcc*)gacc;
+  a.fsum = (float4*)fsum;
   a.ps = ps; a.ps_stride = carry;
   a.rows = rows; a.touched = touched; a.n_touched = n_touched; a.list_cap = list_cap;
   a.src = nullptr; a.src_stride = 0; a.save = nullptr; a.save_stride = 0;
   a.n_keys = n_keys; a.bin_cap = bin_cap;
   a.bins = bin_ints;
-  a.n_bin_list = bin_ints ? a.bins + (size_t)B * n_keys : nullptr;
-  a.bin_list = bin_ints ? a.n_bin_list + B : nullptr;
-  a.key = bin_ints ? a.bin_list + (size_t)B * bin_cap : nullptr;
-  a.rank = bin_ints ? a.key + (size_t)B * P : nullptr;
-  a.perm = bin_ints ? a.rank + (size_t)B * P : nullptr;
+  a.n_bin_list = a.bins + (size_t)B * n_keys;
+  a.bin_list = a.n_bin_list + B;
+  a.key = a.bin_list + (size_t)B * bin_cap;
+  a.rank = a.key + (size_t)B * P;
+  a.perm = a.rank + (size_t)B * P;
 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -715,24 +731,24 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;   \
     ++*n_launches;                                                     \
   } while (0)
-  // a gradient's P2G of the working carry, zeroed and counted: the scan,
+  // P2G into G's sums of the working carry, zeroed and counted: the scan,
   // then P2G in bin order
-#define UNIDOM_SORTED_P2G(write_F)                                              \
+#define UNIDOM_SORTED_P2G(G, write_F)                                           \
   do {                                                                          \
     big_bin_kernel<<<B, BIN_NT, 0, s>>>(g, a);                                  \
     UNIDOM_LAUNCHED();                                                          \
-    big_p2g_sorted_kernel<<<particles, NT, 0, s>>>(g, a, (write_F));            \
+    big_p2g_sorted_kernel<G><<<particles, NT, 0, s>>>(g, a, (write_F));         \
     UNIDOM_LAUNCHED();                                                          \
   } while (0)
-  // a gradient's forward substep f of the working carry, in place, from its
-  // zeroed and counted stencils; the new carry to a.save where set, and
-  // with `next` its stencils zeroed and counted
-#define UNIDOM_GRAD_SUBSTEP(f, next)                                            \
+  // forward substep f of the working carry, in place, from its zeroed and
+  // counted stencils, P2G summed in G; the new carry to a.save where set,
+  // and with `next` its stencils zeroed and counted
+#define UNIDOM_SUBSTEP(G, f, next)                                              \
   do {                                                                          \
-    UNIDOM_SORTED_P2G(1);                                                       \
-    big_grid_kernel<GridAcc><<<cells_grid, NT, 0, s>>>(g, a, (f), nullptr);     \
+    UNIDOM_SORTED_P2G(G, 1);                                                    \
+    big_grid_kernel<G><<<cells_grid, NT, 0, s>>>(g, a, (f), nullptr);           \
     UNIDOM_LAUNCHED();                                                          \
-    big_g2p_kernel<<<particles, NT, 0, s>>>(g, a, (next));                      \
+    big_g2p_kernel<G><<<particles, NT, 0, s>>>(g, a, (next));                   \
     UNIDOM_LAUNCHED();                                                          \
   } while (0)
   // K3-seg: segment sg's L carries from its checkpoint into out (env
@@ -744,30 +760,21 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
     a.src_stride = (size_t)n_ckpt * carry;                                           \
     a.save = (out);                                                                  \
     a.save_stride = (out_stride);                                                    \
-    big_zero_kernel<GridAcc><<<particles, NT, 0, s>>>(g, a, (GridAcc*)nullptr,       \
+    big_zero_kernel<<<particles, NT, 0, s>>>(g, a, (GridAcc*)nullptr,       \
                                                       L_ > 1);                       \
     UNIDOM_LAUNCHED();                                                               \
     a.src = nullptr;                                                                 \
     for (int j = 0; j + 1 < L_; ++j) {                                               \
       a.save = (out) + (size_t)(j + 1) * carry;                                      \
-      UNIDOM_GRAD_SUBSTEP(t0_ + j, j + 2 < L_);                                      \
+      UNIDOM_SUBSTEP(GridAcc, t0_ + j, j + 2 < L_);                                  \
     }                                                                                \
     a.save = nullptr;                                                                \
   } while (0)
 
   if (what == 0 && !hist) {  // K3-fwd in a rollout
-    big_pack_kernel<<<particles, NT, 0, s>>>(g, a, 0);
+    big_pack_kernel<float4><<<particles, NT, 0, s>>>(g, a, 1);
     UNIDOM_LAUNCHED();
-    for (int f = 0; f < steps; ++f) {
-      big_zero_kernel<float4><<<particles, NT, 0, s>>>(g, a, (GridAcc*)nullptr, 0);
-      UNIDOM_LAUNCHED();
-      big_p2g_kernel<<<particles, NT, 0, s>>>(g, a, 1);
-      UNIDOM_LAUNCHED();
-      big_grid_kernel<float4><<<cells_grid, NT, 0, s>>>(g, a, f, nullptr);
-      UNIDOM_LAUNCHED();
-      big_g2p_kernel<<<particles, NT, 0, s>>>(g, a, 0);
-      UNIDOM_LAUNCHED();
-    }
+    for (int f = 0; f < steps; ++f) UNIDOM_SUBSTEP(float4, f, f + 1 < steps);
     big_unpack_kernel<<<particles, NT, 0, s>>>(g, a);
     UNIDOM_LAUNCHED();
     return (int)cudaSuccess;
@@ -775,12 +782,12 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
   if (what == 0) {  // K3-fwd with checkpoints
     a.save = hist;
     a.save_stride = (size_t)n_ckpt * carry;
-    big_pack_kernel<<<particles, NT, 0, s>>>(g, a, 1);
+    big_pack_kernel<GridAcc><<<particles, NT, 0, s>>>(g, a, 1);
     UNIDOM_LAUNCHED();
     for (int f = 0; f < steps; ++f) {
       a.save = f + 1 < steps && (f + 1) % K == 0 ? hist + (size_t)((f + 1) / K) * carry
                                                    : nullptr;
-      UNIDOM_GRAD_SUBSTEP(f, f + 1 < steps);
+      UNIDOM_SUBSTEP(GridAcc, f, f + 1 < steps);
     }
     a.save = nullptr;
     big_unpack_kernel<<<particles, NT, 0, s>>>(g, a);
@@ -791,10 +798,10 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
     if (segment < 0 || segment >= n_ckpt) return (int)cudaErrorInvalidValue;
     a.src = hist + (size_t)segment * carry;
     a.src_stride = (size_t)n_ckpt * carry;
-    big_zero_kernel<GridAcc><<<particles, NT, 0, s>>>(g, a, (GridAcc*)nullptr, 1);
+    big_zero_kernel<<<particles, NT, 0, s>>>(g, a, (GridAcc*)nullptr, 1);
     UNIDOM_LAUNCHED();
     a.src = nullptr;
-    UNIDOM_SORTED_P2G(0);
+    UNIDOM_SORTED_P2G(GridAcc, 0);
     return (int)cudaSuccess;
   }
   big_rows_kernel<<<env_blocks, NT, 0, s>>>(g, a, B);
@@ -844,10 +851,10 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
       a.ps = (float*)(base + (size_t)(t - t0) * carry);  // read only from here on
       a.ps_stride = stride;
       if (!counted) {
-        big_zero_kernel<GridAcc><<<particles, NT, 0, s>>>(g, a, w.dsum, 1);
+        big_zero_kernel<<<particles, NT, 0, s>>>(g, a, w.dsum, 1);
         UNIDOM_LAUNCHED();
       }
-      UNIDOM_SORTED_P2G(0);
+      UNIDOM_SORTED_P2G(GridAcc, 0);
       big_grid_kernel<GridAcc><<<cells_grid, NT, 0, s>>>(g, a, t, w.pre);
       UNIDOM_LAUNCHED();
       big_g2p_bwd_kernel<<<particles, NT, 0, s>>>(g, a, w);
@@ -871,7 +878,7 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
   big_bwd_finish_kernel<<<env_blocks, NT, 0, s>>>(g, w, B);
   UNIDOM_LAUNCHED();
 #undef UNIDOM_SEGMENT
-#undef UNIDOM_GRAD_SUBSTEP
+#undef UNIDOM_SUBSTEP
 #undef UNIDOM_SORTED_P2G
 #undef UNIDOM_LAUNCHED
   return (int)cudaSuccess;

@@ -542,13 +542,23 @@ __device__ __forceinline__ void chain_fwd(const float* c, int P, int p, const Ar
 }
 
 // ------------------------------------------------------- P2G's accumulators
-// K2 adds P2G's momentum and mass into a float4 per cell; K3 into four
-// doubles per cell (GridAcc), so that the sum does not depend on the order
-// of the atomics at float32's precision (K3-bwd then recomputes the grid
-// that the forward saw).
+// K2 and K3's rollout add P2G's momentum and mass into a float4 per cell; K3
+// with a gradient into four doubles per cell (GridAcc), so that the sum does
+// not depend on the order of the atomics at float32's precision (K3-bwd then
+// recomputes the grid that the forward saw).
 
 struct alignas(32) GridAcc {
   double m[4];  // momentum xyz, mass
+};
+
+// the type a scatter into G sums in
+template <class G>
+struct SumOf {
+  using T = float;
+};
+template <>
+struct SumOf<GridAcc> {
+  using T = double;
 };
 
 __device__ __forceinline__ void grid_zero(float4* grid, int cell) {
@@ -560,8 +570,8 @@ __device__ __forceinline__ void grid_zero(GridAcc* grid, int cell) {
 __device__ __forceinline__ void grid_add(float4* grid, int cell, int k, float v) {
   atomicAdd((float*)(grid + cell) + k, v);
 }
-__device__ __forceinline__ void grid_add(GridAcc* grid, int cell, int k, float v) {
-  atomicAdd(grid[cell].m + k, (double)v);
+__device__ __forceinline__ void grid_add(GridAcc* grid, int cell, int k, double v) {
+  atomicAdd(grid[cell].m + k, v);
 }
 __device__ __forceinline__ float4 grid_load(const float4* grid, int cell) { return grid[cell]; }
 __device__ __forceinline__ float4 grid_load(const GridAcc* grid, int cell) {
@@ -576,13 +586,17 @@ __device__ __forceinline__ float4 grid_load(const GridAcc* grid, int cell) {
 // values) adds a cotangent of momentum. cell < 0 is a node outside the grid,
 // whose values are 0. Every lane of a warp calls them for every node.
 //
-// AtomicScatter adds each particle's share by an atomic (K2; K3 in a
-// rollout). WarpScatter is for particles sorted by bin (the stencil's base
-// node, bin_key): lanes of one bin share all 27 nodes, so each node's
-// shares are summed over the bin's lanes of the warp first, in double, by a
-// segmented reduction of shuffles, and the bin's first lane adds the sums
-// by one double atomic each (K3 with a gradient). Double sums keep the
-// result independent of the order at float32's precision.
+// AtomicScatter adds each particle's share of a momentum cotangent by an
+// atomic (K2's G2P adjoint).
+// WarpScatter sums over runs of a warp's consecutive lanes whose particles
+// share a bin (the stencil's base node, bin_key): such lanes share all 27
+// nodes, so each node's shares are summed over the run by a segmented
+// reduction of shuffles, and the run's first lane adds the sums by one
+// atomic each, into G's sums: in double for GridAcc (K3 with a gradient: the
+// result then does not depend on the order at float32's precision), in
+// float for the float4 grid (K2; K3's rollout). K3 sorts the particles by
+// bin, so that a bin is one run; K2 takes them in their own order, where
+// neighbours along a rope or a box's rows mostly share a bin.
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int DEAD_KEY = -2;  // a lane without a particle
@@ -601,67 +615,63 @@ __device__ __forceinline__ int bin_key(const Stencil& st, const Args& g) {
   return (((int)i + 2) * (g.ry + 2) + ((int)j + 2)) * (g.rz + 2) + ((int)k + 2);
 }
 
-template <class G>
 struct AtomicScatter {
-  G* grid;
-  int* mark;  // null: no marks (G2P's adjoint)
-  int* touched;
-  int* n_touched;
+  float4* grid;
   __device__ __forceinline__ void begin(const Stencil&, const Args&, bool) {}
-  __device__ __forceinline__ void node(int cell, const float (&v)[4]) {
-    if (cell < 0) return;
-    for (int k = 0; k < 4; ++k) grid_add(grid, cell, k, v[k]);
-    if (atomicCAS(mark + cell, 0, 1) == 0) touched[atomicAdd(n_touched, 1)] = cell;
-  }
   __device__ __forceinline__ void node3(int cell, const float (&v)[3]) {
     if (cell < 0) return;
     for (int k = 0; k < 3; ++k) grid_add(grid, cell, k, v[k]);
   }
 };
 
+template <class G>
 struct WarpScatter {
-  GridAcc* grid;
+  using T = typename SumOf<G>::T;
+  G* grid;
   int* mark;  // null: no marks (G2P's adjoint)
   int* touched;
   int* n_touched;
-  unsigned same;  // bit s: lane + 2^s holds the same bin
-  bool head;      // the bin's first lane in the warp
+  unsigned same;  // bit s: lane + 2^s lies in this lane's run
+  bool head;      // the run's first lane
   __device__ __forceinline__ void begin(const Stencil& st, const Args& g, bool live) {
     const int key = live ? bin_key(st, g) : DEAD_KEY;
     const int lane = threadIdx.x & 31;
+    // every lane shuffles and votes, before any lane-dependent branch
+    const int next = __shfl_down_sync(FULL_MASK, key, 1);
+    const int up = __shfl_up_sync(FULL_MASK, key, 1);
+    // bit j: lane j is the last of its run; this run's last lane
+    const unsigned last = __ballot_sync(FULL_MASK, lane == 31 || next != key);
+    const int end = __ffs(last & (FULL_MASK << lane)) - 1;
     same = 0;
 #pragma unroll
-    for (int s = 0; s < 5; ++s) {
-      const int other = __shfl_down_sync(FULL_MASK, key, 1 << s);
-      if (lane + (1 << s) < 32 && other == key) same |= 1u << s;
-    }
-    const int up = __shfl_up_sync(FULL_MASK, key, 1);  // every lane shuffles
+    for (int s = 0; s < 5; ++s)
+      if (lane + (1 << s) <= end) same |= 1u << s;
     head = lane == 0 || up != key;
   }
   // each lane's values become the sum over its own and the later lanes of
-  // its bin; the head's, the bin's sum
+  // its run; the head's, the run's sum
   template <int N>
-  __device__ __forceinline__ void reduce(double (&v)[N]) const {
+  __device__ __forceinline__ void reduce(T (&v)[N]) const {
 #pragma unroll
     for (int s = 0; s < 5; ++s)
 #pragma unroll
       for (int k = 0; k < N; ++k) {
-        const double o = __shfl_down_sync(FULL_MASK, v[k], 1 << s);
+        const T o = __shfl_down_sync(FULL_MASK, v[k], 1 << s);
         if (same & (1u << s)) v[k] += o;
       }
   }
   __device__ __forceinline__ void node(int cell, const float (&v)[4]) {
-    double d[4] = {v[0], v[1], v[2], v[3]};
+    T d[4] = {v[0], v[1], v[2], v[3]};
     reduce(d);
     if (!head || cell < 0) return;
-    for (int k = 0; k < 4; ++k) atomicAdd(grid[cell].m + k, d[k]);
+    for (int k = 0; k < 4; ++k) grid_add(grid, cell, k, d[k]);
     if (atomicCAS(mark + cell, 0, 1) == 0) touched[atomicAdd(n_touched, 1)] = cell;
   }
   __device__ __forceinline__ void node3(int cell, const float (&v)[3]) {
-    double d[3] = {v[0], v[1], v[2]};
+    T d[3] = {v[0], v[1], v[2]};
     reduce(d);
     if (!head || cell < 0) return;
-    for (int k = 0; k < 3; ++k) atomicAdd(grid[cell].m + k, d[k]);
+    for (int k = 0; k < 3; ++k) grid_add(grid, cell, k, d[k]);
   }
 };
 
@@ -693,19 +703,20 @@ __device__ __forceinline__ void zero_stencil(const float* x, const Args& g, G* g
 
 // stress and P2G of particle p of the carry c (stride P) through the scatter
 // s; F_out (may be c itself) takes F after the return map when not null. A
-// lane that is not live (no particle) hands s 0 at every node.
+// lane that is not live (no particle) runs the chain of particle p (any
+// valid index) all the same and hands s 0 at every node: a chain behind a
+// branch on `live` made K2-bwd spill (2,656 B of spill loads at its 168
+// registers, K2-bwd 17% slower on whip_rope at K = 1; H100).
 template <class S>
 __device__ __forceinline__ void p2g_particle(const float* c, float* F_out, int P, int p,
                                              bool live, const Args& g, int b, S& s) {
   Chain ch;
   Stencil st;
-  if (live) {
-    chain_fwd(c, P, p, g, b, ch);
-    if (F_out)
-      for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j) F_out[(IF + 3 * i + j) * P + p] = ch.Ff[i][j];
-    stencil(ch.x, g.inv_dx, st);
-  }
+  chain_fwd(c, P, p, g, b, ch);
+  if (F_out && live)
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) F_out[(IF + 3 * i + j) * P + p] = ch.Ff[i][j];
+  stencil(ch.x, g.inv_dx, st);
   s.begin(st, g, live);
 #pragma unroll
   for (int a = 0; a < 3; ++a)

@@ -39,27 +39,28 @@
 // fills the card, and by how much of the card the batch reaches when not.
 //
 // Design:
-//   - K2-fwd and K2-seg: one thread block per env, 128 threads, the substep
-//     loop inside the kernel. The particle state (25 floats each) lives in
-//     shared memory; a thread owns particles tid, tid + 128, ... and keeps
-//     each one's SVD in registers while it works on it.
-//   - K2-bwd: a thread-block cluster per env (launch_config in
-//     ops/cuda/mpm_kernel.py picks its size from the batch and the card's
-//     132 SMs: shape_rope's 64 envs take 2 CTAs each, one wave; whip_rope's
-//     1024 envs fill the card with a cluster of 1). The env's particles are
-//     split into the cluster's CTAs, ceil(P / cluster) each, up to one
-//     particle per thread; each CTA keeps its particles' carry, the carry's
-//     cotangent and the Lame parameters' and yield stress's cotangents (in
-//     double) in its own shared memory, its own copy of the primitives'
-//     frames and its own touched-cell list. Phases that cross particles
-//     (through the grid) are separated by cluster.sync() (with a cluster
-//     of 1, __syncthreads()). Each CTA sums the primitives' and the ground
+//   - K2-fwd and K2-bwd: a thread-block cluster per env (fwd_launch_config
+//     and launch_config in ops/cuda/mpm_kernel.py pick its size from the
+//     batch and the card's 132 SMs: shape_rope's 64 envs take 2 CTAs each,
+//     one wave; whip_rope's 1024 envs fill the card with a cluster of 1).
+//     The env's particles are split into the cluster's CTAs, ceil(P /
+//     cluster) each, up to one particle per thread; each CTA keeps its
+//     particles' carry in its own shared memory (and, backward, the carry's
+//     cotangent and the Lame parameters' and yield stress's cotangents in
+//     double), its own copy of the primitives' frames and its own
+//     touched-cell list. Phases that cross particles (through the grid) are
+//     separated by cluster.sync() (with a cluster of 1, __syncthreads()).
+//     K2-fwd runs every substep with substep_fwd, the device code of K2-bwd's
+//     segment recompute: the forward and the recompute are one code path.
+//     K2-bwd: each CTA sums the primitives' and the ground
 //     friction's cotangents of its cells (each thread in double over its
 //     cells, then over the warp by shuffles, then one shared-memory atomic
 //     per warp and slot); the cluster's first CTA reads its siblings' sums
 //     through distributed shared memory (map_shared_rank) and runs the
 //     forward kinematics' adjoint, one thread per primitive, on threads that
 //     hold no particle where the block has such threads.
+//   - The standalone K2-seg: one thread block of 128 threads per env, the
+//     whole env's carry in its shared memory, the same device code.
 //   - The TPU kernel's dense tensor-product transfers (a TPU has no fast
 //     scatter) become a scatter: each particle's 27 stencil nodes, base =
 //     floor(x inv_dx - 0.5), offsets 0..2, the same nodes and weights as the
@@ -77,9 +78,10 @@
 //     keeps each touched cell's momentum and mass before the grid ops, by
 //     its CTA and slot.
 //   - The primitives' frames of all substeps (steps + 1 rows) are computed
-//     once per block by one thread into shared memory; each substep reads
+//     once per CTA by one thread into shared memory; each substep reads
 //     its two.
-//   - The history: K2-fwd writes the input of substeps 0, K, 2K, ...; with
+//   - The history: K2-fwd writes the input of substeps 0, K, 2K, ... (each
+//     CTA its particles'); with
 //     K = 1 that is every substep's input and K2-bwd reads it directly;
 //     with K > 1 K2-bwd runs K2-seg as the first phase of each segment,
 //     into a per-env buffer of K carries in device memory, then walks the
@@ -107,7 +109,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NT = 128;           // K2-fwd's and K2-seg's threads per block
+constexpr int SEG_NT = 128;       // the standalone K2-seg's threads per block
+constexpr int FWD_MAX_NT = 640;   // K2-fwd's most threads per CTA (its register budget)
 constexpr int BWD_MAX_NT = 320;   // K2-bwd's most threads per CTA (its register budget)
 constexpr int MAX_CLUSTER = 8;    // the portable cluster size
 
@@ -144,6 +147,40 @@ struct ClusterSync {
       __syncthreads();
   }
 };
+// ClusterSync that also times the phases between its calls on thread 0 of
+// the launch's first CTA: clocks[k % 4] += clock64() cycles since the
+// previous call (the k-th), clocks[4] the previous stamp and clocks[5] k.
+// substep_fwd calls it four times (after the stencils' zeroing, P2G, the
+// grid ops and G2P). [k2-design] launches K2-fwd with it; the main path's
+// kernel is the ClusterSync instantiation.
+struct StampedSync {
+  ClusterSync sync;
+  long long* clocks;  // (6,) in device memory, 0 on entry
+  __device__ __forceinline__ void start() const {
+    if (blockIdx.x == 0 && threadIdx.x == 0) clocks[4] = clock64();
+  }
+  __device__ __forceinline__ void operator()() const {
+    sync();
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      const long long now = clock64();
+      clocks[clocks[5] % 4] += now - clocks[4];
+      clocks[4] = now;
+      ++clocks[5];
+    }
+  }
+};
+__device__ __forceinline__ void start_clock(const ClusterSync&) {}
+__device__ __forceinline__ void start_clock(const StampedSync& s) { s.start(); }
+
+// the per-particle inputs of gl (a copy of the kernel's Args) from particle
+// p0 on (a CTA's first), in place
+__device__ __forceinline__ void from_particle(Args& gl, int p0) {
+  gl.material += p0;
+  gl.hardness += p0;
+  gl.mu += (size_t)p0 * gl.mu_sp;
+  gl.lamda += (size_t)p0 * gl.la_sp;
+  gl.ys += (size_t)p0 * gl.ys_sp;
+}
 
 // ------------------------------------------------------------- substep phases
 // Each runs on every thread of the block, a thread taking particles (or
@@ -161,11 +198,20 @@ __device__ void zero_stencils(const float* c, int n, int P, const Args& g, float
 }
 
 // stress and P2G from the carry c; F_out (may be c itself) takes F after the
-// return map when not null; the first mark of a cell appends it to touched
+// return map when not null; the first mark of a cell appends it to touched.
+// Each node's shares sum over the warp's runs of particles in one bin before
+// one float atomic (WarpScatter): consecutive particles along a rope share
+// their bin, and one atomic per particle and node (a thin rope's ~40 shares
+// per touched cell) serialised in L2. Every lane of a warp runs the loop to
+// its end, a lane past n without a particle.
 __device__ void p2g(const float* c, float* F_out, int n, int P, const Args& g, int b,
                     float4* grid, int* mark, int* touched, int* n_touched) {
-  AtomicScatter<float4> s{grid, mark, touched, n_touched};
-  for (int p = threadIdx.x; p < n; p += blockDim.x) p2g_particle(c, F_out, P, p, true, g, b, s);
+  WarpScatter<float4> s{grid, mark, touched, n_touched, 0u, false};
+  const int lane = threadIdx.x & 31;
+  for (int q = threadIdx.x - lane; q < n; q += blockDim.x) {
+    const bool live = q + lane < n;
+    p2g_particle(c, F_out, P, live ? q + lane : 0, live, g, b, s);
+  }
 }
 
 // the grid ops on the touched cells; pre, when not null, keeps each cell's
@@ -237,57 +283,69 @@ __device__ __forceinline__ void copy_carry(const float* src, int Ps, float* dst,
 }
 
 // ------------------------------------------------------------------ K2-fwd
+// B clusters of cs CTAs; CTA `rank` of env b holds particles p0 .. p0 + n - 1,
+// p0 = rank * Pc, at stride Pc in its shared memory, and runs the substeps
+// with substep_fwd and the cluster's barrier (sync). Each CTA writes its
+// particles' checkpoints (g.hist, when set) and outputs; the first writes
+// the trajectory rows.
 
-__global__ void __launch_bounds__(NT) mpm_step_fwd_kernel(Args g) {
+template <class Sync>
+__global__ void __launch_bounds__(FWD_MAX_NT) mpm_step_fwd_kernel(Args g, int cs, int Pc,
+                                                                  Sync sync) {
   extern __shared__ float smem[];
   __shared__ Prim prims[MAX_PRIM];
   __shared__ int n_touched;
 
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int rank = cs > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int b = blockIdx.x / cs, tid = threadIdx.x, nt = blockDim.x;
   const int P = g.P, steps = g.steps;
+  const int p0 = rank * Pc, n = max(0, min(Pc, P - p0));  // this CTA's particles
   const size_t cells = (size_t)g.rx * g.ry * g.rz;
-  float* ps = smem;                                   // N_COMP * P
-  float* rows = ps + (size_t)N_COMP * P;              // (steps + 1) * n_prim * ROW
+  Args gl = g;
+  from_particle(gl, p0);
+  float* ps = smem;                                   // N_COMP * Pc
+  float* rows = ps + (size_t)N_COMP * Pc;             // (steps + 1) * n_prim * ROW
   int* touched = (int*)(rows + (size_t)(steps + 1) * g.n_prim * ROW);
   float4* grid = g.grid + (size_t)b * cells;
   int* mark = g.mark + (size_t)b * cells;
   const float gf = g.ground_friction[(size_t)b * g.gf_sb];
 
-  for (int p = tid; p < P; p += nt) {
-    size_t o = (size_t)b * P + p;
+  for (int p = tid; p < n; p += nt) {
+    size_t o = (size_t)b * P + p0 + p;
     for (int d = 0; d < 3; ++d) {
-      ps[(IX + d) * P + p] = g.x[o * 3 + d];
-      ps[(IV + d) * P + p] = g.v[o * 3 + d];
+      ps[(IX + d) * Pc + p] = g.x[o * 3 + d];
+      ps[(IV + d) * Pc + p] = g.v[o * 3 + d];
     }
     for (int e = 0; e < 9; ++e) {
-      ps[(IC + e) * P + p] = g.C[o * 9 + e];
-      ps[(IF + e) * P + p] = g.F[o * 9 + e];
+      ps[(IC + e) * Pc + p] = g.C[o * 9 + e];
+      ps[(IF + e) * Pc + p] = g.F[o * 9 + e];
     }
-    ps[IJ * P + p] = g.J[o];
+    ps[IJ * Pc + p] = g.J[o];
   }
   if (tid == 0) fk_rows(g, b, rows);
   __syncthreads();
+  start_clock(sync);
 
   const int n_ckpt = (steps + g.K - 1) / g.K;
   for (int f = 0; f < steps; ++f) {
     if (g.hist && f % g.K == 0)
-      copy_carry(ps, P, g.hist + ((size_t)b * n_ckpt + f / g.K) * N_COMP * P, P, P);
-    substep_fwd(ps, P, P, f, g, b, rows, prims, grid, mark, touched, &n_touched, gf,
-                BlockSync{});
+      copy_carry(ps, Pc, g.hist + ((size_t)b * n_ckpt + f / g.K) * N_COMP * P + p0, P, n);
+    substep_fwd(ps, n, Pc, f, gl, b, rows, prims, grid, mark, touched, &n_touched, gf, sync);
   }
 
-  for (int p = tid; p < P; p += nt) {
-    size_t o = (size_t)b * P + p;
+  for (int p = tid; p < n; p += nt) {
+    size_t o = (size_t)b * P + p0 + p;
     for (int d = 0; d < 3; ++d) {
-      g.x_out[o * 3 + d] = ps[(IX + d) * P + p];
-      g.v_out[o * 3 + d] = ps[(IV + d) * P + p];
+      g.x_out[o * 3 + d] = ps[(IX + d) * Pc + p];
+      g.v_out[o * 3 + d] = ps[(IV + d) * Pc + p];
     }
     for (int e = 0; e < 9; ++e) {
-      g.C_out[o * 9 + e] = ps[(IC + e) * P + p];
-      g.F_out[o * 9 + e] = ps[(IF + e) * P + p];
+      g.C_out[o * 9 + e] = ps[(IC + e) * Pc + p];
+      g.F_out[o * 9 + e] = ps[(IF + e) * Pc + p];
     }
-    g.J_out[o] = ps[IJ * P + p];
+    g.J_out[o] = ps[IJ * Pc + p];
   }
+  if (rank != 0) return;
   // trajectory rows 1 .. steps, and copy_frame: row 0 <- row steps
   for (int k = tid; k < (steps + 1) * g.n_prim; k += nt) {
     int f = k / g.n_prim, ip = k % g.n_prim;
@@ -326,7 +384,7 @@ __device__ void seg_recompute(const Args& g, int b, int s, float* out, float* ps
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(NT) mpm_step_seg_kernel(Args g, int s, float* out) {
+__global__ void __launch_bounds__(SEG_NT) mpm_step_seg_kernel(Args g, int s, float* out) {
   extern __shared__ float smem[];
   __shared__ Prim prims[MAX_PRIM];
   __shared__ int n_touched;
@@ -364,13 +422,8 @@ __global__ void __launch_bounds__(BWD_MAX_NT) mpm_step_bwd_kernel(Args g, BwdArg
   const int p0 = rank * Pc, n = max(0, min(Pc, P - p0));  // this CTA's particles
   const ClusterSync sync{cs};
   const size_t cells = (size_t)g.rx * g.ry * g.rz;
-  // the per-particle inputs from this CTA's first particle on
   Args gl = g;
-  gl.material = g.material + p0;
-  gl.hardness = g.hardness + p0;
-  gl.mu = g.mu + (size_t)p0 * g.mu_sp;
-  gl.lamda = g.lamda + (size_t)p0 * g.la_sp;
-  gl.ys = g.ys + (size_t)p0 * g.ys_sp;
+  from_particle(gl, p0);
   float* ps = smem;                                   // N_COMP * Pc: the substep's carry
   float* cot = ps + (size_t)N_COMP * Pc;              // N_COMP * Pc: the carry's cotangent
   float* rows = cot + (size_t)N_COMP * Pc;            // (steps + 1) * n_prim * ROW
@@ -451,7 +504,7 @@ __global__ void __launch_bounds__(BWD_MAX_NT) mpm_step_bwd_kernel(Args g, BwdArg
       sync();
       // then each stage's adjoint in reverse
       {
-        AtomicScatter<float4> scat{dgrid, nullptr, nullptr, nullptr};
+        AtomicScatter scat{dgrid};
         for (int p = tid; p < n; p += nt)
           g2p_adjoint_particle(ps, cot, Pc, p, true, gl, grid, scat);
       }
@@ -528,9 +581,9 @@ int list_capacity(int P, int cells) {
   return (int)(cap < cells ? cap : cells);
 }
 
-// dynamic shared memory of a block holding P particles (K2-bwd: of a CTA
-// holding per_cta): the carry (and, backward, its cotangent), the primitive
-// rows, the touched list (and, backward, the three per-particle
+// dynamic shared memory of a block holding P particles (K2-fwd and K2-bwd:
+// of a CTA holding per_cta): the carry (and, backward, its cotangent), the
+// primitive rows, the touched list (and, backward, the three per-particle
 // accumulators in double, with 8 bytes of alignment slack)
 size_t smem_bytes(int P, int cells, int steps, int n_prim, bool bwd) {
   size_t floats = (size_t)(bwd ? 2 * N_COMP : N_COMP) * P + (size_t)(steps + 1) * n_prim * ROW;
@@ -545,9 +598,10 @@ cudaError_t prepare_launch(Kernel kernel, size_t smem, int device) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// K2-bwd's launch: B clusters of `cluster` CTAs of `threads` threads
-cudaLaunchConfig_t bwd_config(int B, int cluster, int threads, size_t smem, cudaStream_t stream,
-                              cudaLaunchAttribute* attr) {
+// K2-fwd's and K2-bwd's launch: B clusters of `cluster` CTAs of `threads`
+// threads
+cudaLaunchConfig_t cluster_config(int B, int cluster, int threads, size_t smem,
+                                  cudaStream_t stream, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * cluster);
   cfg.blockDim = dim3(threads);
@@ -562,6 +616,38 @@ cudaLaunchConfig_t bwd_config(int B, int cluster, int threads, size_t smem, cuda
   return cfg;
 }
 
+// What the card makes of a cluster kernel at `threads` threads, `smem` bytes
+// of dynamic shared memory and clusters of `cluster` CTAs: out = registers
+// per thread, local memory per thread (bytes), static shared memory (bytes),
+// blocks per SM (the occupancy API) and clusters the card holds at once
+template <typename Kernel>
+cudaError_t kernel_info(Kernel kernel, int threads, size_t smem, int cluster, int device,
+                        int* out) {
+  cudaError_t err = prepare_launch(kernel, smem, device);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)attr.sharedSizeBytes;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute la;
+  cudaLaunchConfig_t cfg = cluster_config(cluster, cluster, threads, smem, nullptr, &la);
+  return cudaOccupancyMaxActiveClusters(&out[4], kernel, &cfg);
+}
+
+// whether a cluster launch of `cluster` CTAs of `threads` threads, each
+// holding per_cta of the P particles with a touched list of list_cap slots in
+// smem bytes, is one the kernel takes (at most max_threads threads)
+bool cluster_launch_ok(int P, int cells, int steps, int n_prim, bool bwd, int list_cap,
+                       int cluster, int threads, int max_threads, int per_cta, long long smem) {
+  return cluster >= 1 && cluster <= MAX_CLUSTER && per_cta >= 1 && (long)per_cta * cluster >= P &&
+         threads >= 32 && threads <= max_threads && threads % 32 == 0 &&
+         list_cap >= list_capacity(per_cta, cells) &&
+         (size_t)smem == smem_bytes(per_cta, cells, steps, n_prim, bwd);
+}
+
 }  // namespace
 
 extern "C" {
@@ -572,34 +658,27 @@ size_t mpm_step_smem_bytes(int P, int cells, int steps, int n_prim, int bwd) {
   return smem_bytes(P, cells, steps, n_prim, bwd != 0);
 }
 
-// What the card makes of K2-bwd at `threads` threads, `smem` bytes of dynamic
-// shared memory and clusters of `cluster` CTAs: out = registers per thread,
-// local memory per thread (bytes), static shared memory (bytes), blocks per
-// SM (the occupancy API) and clusters the card holds at once. Returns a
-// cudaError_t.
-int mpm_step_bwd_kernel_info(int threads, long long smem, int cluster, int device, int* out) {
-  cudaError_t err = prepare_launch(mpm_step_bwd_kernel, (size_t)smem, device);
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes attr;
-  if ((err = cudaFuncGetAttributes(&attr, mpm_step_bwd_kernel)) != cudaSuccess) return (int)err;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = (int)attr.sharedSizeBytes;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], mpm_step_bwd_kernel, threads,
-                                                      (size_t)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute la;
-  cudaLaunchConfig_t cfg = bwd_config(cluster, cluster, threads, (size_t)smem, nullptr, &la);
-  return (int)cudaOccupancyMaxActiveClusters(&out[4], mpm_step_bwd_kernel, &cfg);
+// What the card makes of K2-fwd (bwd 0) or K2-bwd (bwd 1) at `threads`
+// threads, `smem` bytes of dynamic shared memory and clusters of `cluster`
+// CTAs: out = registers per thread, local memory per thread (bytes), static
+// shared memory (bytes), blocks per SM (the occupancy API) and clusters the
+// card holds at once. Returns a cudaError_t.
+int mpm_step_kernel_info(int bwd, int threads, long long smem, int cluster, int device,
+                         int* out) {
+  if (bwd) return (int)kernel_info(mpm_step_bwd_kernel, threads, (size_t)smem, cluster, device, out);
+  return (int)kernel_info(mpm_step_fwd_kernel<ClusterSync>, threads, (size_t)smem, cluster, device,
+                          out);
 }
 
 // The forward's arguments, shared by the three entry points. hist (B,
 // ceil(steps / K), N_COMP, P) receives the carry every K substeps (K2-fwd)
 // or holds it (K2-seg, K2-bwd); K2-fwd writes no history when it is null.
-// K2-bwd runs B clusters of `cluster` CTAs of `threads` threads, each CTA
-// holding per_cta particles and a touched list of list_cap slots in smem
-// bytes of dynamic shared memory (ops/cuda/mpm_kernel.py launch_config; it
-// must equal smem_bytes(per_cta, ...)).
+// K2-fwd and K2-bwd run B clusters of `cluster` CTAs of `threads` threads,
+// each CTA holding per_cta particles and a touched list of list_cap slots in
+// smem bytes of dynamic shared memory (ops/cuda/mpm_kernel.py
+// fwd_launch_config and launch_config; it must equal smem_bytes(per_cta,
+// ...)). clocks, when not null (K2-fwd only), receives the phase split of
+// StampedSync: 6 int64, 0 on entry.
 int mpm_step_launch(const float* x, const float* v, const float* C, const float* F, const float* J,
                  const float* mu, int mu_sb, int mu_sp, const float* lamda, int la_sb, int la_sp,
                  const float* ys, int ys_sb, int ys_sp, const float* ground_friction, int gf_sb,
@@ -611,7 +690,7 @@ int mpm_step_launch(const float* x, const float* v, const float* C, const float*
                  float dx2, float p_mass, float gx, float gy, float gz, int device, void* stream,
                  int what, int segment, float* seg_out, const float* const* bwd_in,
                  float* const* bwd_out, float* bwd_scratch, int list_cap, int cluster,
-                 int threads, int per_cta, long long smem) {
+                 int threads, int per_cta, long long smem, long long* clocks) {
   if (B < 1 || P < 1 || n_prim < 0 || n_prim > MAX_PRIM || steps < 1 || K < 1)
     return (int)cudaErrorInvalidValue;
   Args g;
@@ -631,20 +710,33 @@ int mpm_step_launch(const float* x, const float* v, const float* C, const float*
   g.p_mass = p_mass; g.gx = gx; g.gy = gy; g.gz = gz;
   const int cells = rx * ry * rz;
   cudaError_t err;
+  cudaLaunchAttribute la;
   if (what == 0) {  // K2-fwd
-    size_t smem0 = smem_bytes(P, cells, steps, n_prim, false);
-    if ((err = prepare_launch(mpm_step_fwd_kernel, smem0, device)) != cudaSuccess) return (int)err;
-    mpm_step_fwd_kernel<<<B, NT, smem0, (cudaStream_t)stream>>>(g);
+    if (!cluster_launch_ok(P, cells, steps, n_prim, false, list_cap, cluster, threads, FWD_MAX_NT,
+                           per_cta, smem))
+      return (int)cudaErrorInvalidValue;
+    cudaLaunchConfig_t cfg = cluster_config(B, cluster, threads, (size_t)smem,
+                                            (cudaStream_t)stream, &la);
+    const ClusterSync sync{cluster};
+    if (clocks) {
+      auto kernel = mpm_step_fwd_kernel<StampedSync>;
+      if ((err = prepare_launch(kernel, (size_t)smem, device)) != cudaSuccess) return (int)err;
+      err = cudaLaunchKernelEx(&cfg, kernel, g, cluster, per_cta, StampedSync{sync, clocks});
+    } else {
+      auto kernel = mpm_step_fwd_kernel<ClusterSync>;
+      if ((err = prepare_launch(kernel, (size_t)smem, device)) != cudaSuccess) return (int)err;
+      err = cudaLaunchKernelEx(&cfg, kernel, g, cluster, per_cta, sync);
+    }
+    if (err != cudaSuccess) return (int)err;
   } else if (what == 1) {  // K2-seg alone
     if (!hist || segment < 0 || segment * K >= steps) return (int)cudaErrorInvalidValue;
     size_t smem0 = smem_bytes(P, cells, steps, n_prim, false);
     if ((err = prepare_launch(mpm_step_seg_kernel, smem0, device)) != cudaSuccess) return (int)err;
-    mpm_step_seg_kernel<<<B, NT, smem0, (cudaStream_t)stream>>>(g, segment, seg_out);
+    mpm_step_seg_kernel<<<B, SEG_NT, smem0, (cudaStream_t)stream>>>(g, segment, seg_out);
   } else {  // K2-bwd, with K2-seg as a phase of each segment when K > 1
-    if (!hist || cluster < 1 || cluster > MAX_CLUSTER || per_cta < 1 ||
-        (long)per_cta * cluster < P || threads < 32 || threads > BWD_MAX_NT || threads % 32 ||
-        threads < n_prim || list_cap < list_capacity(per_cta, cells) ||
-        (size_t)smem != smem_bytes(per_cta, cells, steps, n_prim, true) || (K > 1 && !seg_out))
+    if (!hist || threads < n_prim || (K > 1 && !seg_out) ||
+        !cluster_launch_ok(P, cells, steps, n_prim, true, list_cap, cluster, threads, BWD_MAX_NT,
+                           per_cta, smem))
       return (int)cudaErrorInvalidValue;
     BwdArgs a;
     a.dx = bwd_in[0]; a.dv = bwd_in[1]; a.dC = bwd_in[2]; a.dF = bwd_in[3]; a.dJ = bwd_in[4];
@@ -663,9 +755,8 @@ int mpm_step_launch(const float* x, const float* v, const float* C, const float*
     a.per_cta = per_cta;
     if ((err = prepare_launch(mpm_step_bwd_kernel, (size_t)smem, device)) != cudaSuccess)
       return (int)err;
-    cudaLaunchAttribute la;
-    cudaLaunchConfig_t cfg = bwd_config(B, cluster, threads, (size_t)smem, (cudaStream_t)stream,
-                                        &la);
+    cudaLaunchConfig_t cfg = cluster_config(B, cluster, threads, (size_t)smem,
+                                            (cudaStream_t)stream, &la);
     if ((err = cudaLaunchKernelEx(&cfg, mpm_step_bwd_kernel, g, a)) != cudaSuccess)
       return (int)err;
   }

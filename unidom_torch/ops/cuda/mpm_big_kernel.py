@@ -23,22 +23,27 @@ K3-bwd. Nothing falls back to autograd through the plain step.
 Pallas kernel), ``mpm_big_step.bwd_launches`` those through K3-bwd,
 ``mpm_big_step.seg_launches`` the K3-seg phases that K3-bwd ran (plus calls
 of ``mpm_big_step_seg``), ``mpm_big_step.cuda_launches`` the CUDA launches
-inside all of them (4 x steps + 2 per K3-fwd macro step). With a gradient
-the kernels sort the particles by bin each substep and sum P2G's and G2P's
-adjoint's shares over a bin before their double atomics (see the source);
-``p2g_sums`` runs that P2G alone on a carry of the history, the grid that
-K3-bwd recomputes.
+inside all of them (4 x steps + 2 per K3-fwd macro step). The kernels sort
+the particles by bin each substep and sum P2G's (and G2P's adjoint's)
+shares over a bin before their atomics: in float into the float4 grid in a
+rollout, in double with a gradient (see the source); ``p2g_sums`` runs the
+gradient's P2G alone on a carry of the history, the grid that K3-bwd
+recomputes.
 
 The particle state crosses in the simulator's layout ((B, P, 3),
 (B, P, 3, 3), (B, P)); the kernels keep it per env in device memory as
 (B, 25, P), component-major, with a (B, cells) float4 grid and mark, a
 touched-cell list per env and the primitives' frames, all scratch from
-``torch.empty``; the history is (B, ceil(steps / K), 25, P).
+``torch.empty``, but for what must start at 0: the sort's counters, and in a
+rollout P2G's float sums and the marks, which K3-fwd leaves at 0 and the
+simulator keeps for its next rollout; the history is (B, ceil(steps / K),
+25, P).
 """
 
 import ctypes
 import functools
 import math
+import weakref
 
 import torch
 
@@ -66,8 +71,9 @@ INT_MAX = 2**31 - 1
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD, _SEG, _BWD, _P2G = 0, 1, 2, 3
 # K3's kernels as mpm_big_step_kernel_info numbers them
-KERNELS = ("zero and count", "bins' scan", "P2G (gradient)", "grid ops", "G2P",
-           "G2P adjoint", "grid ops adjoint", "particle adjoint", "P2G (rollout)")
+KERNELS = ("zero and count", "bins' scan", "P2G (gradient)", "grid ops (gradient)",
+           "G2P (gradient)", "G2P adjoint", "grid ops adjoint", "particle adjoint",
+           "P2G (rollout)", "grid ops (rollout)", "G2P (rollout)")
 
 
 @functools.cache
@@ -75,7 +81,7 @@ def _lib():
     lib = load_library(SOURCE)
     lib.mpm_big_step_launch.argtypes = (
         [_PTR] * 5 + [_PTR, _INT, _INT] * 3 + [_PTR, _INT] + [_PTR] * 4 + [_PTR] * 10
-        + [_PTR] * 4 + [_INT, _INT] + [_INT] * 10 + [_FLOAT] * 8 + [_INT, _PTR]
+        + [_PTR] * 5 + [_INT, _INT] + [_INT] * 10 + [_FLOAT] * 8 + [_INT, _PTR]
         + [_PTR, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR, _PTR]
     )
     lib.mpm_big_step_launch.restype = ctypes.c_int
@@ -139,20 +145,23 @@ def bin_scratch(sim):
 def scratch_bytes(sim, B, ckpt_stride=None):
     """Device memory of one K3-fwd macro step at ``B`` envs: the outputs
     and the kernel's scratch (the float4 grid and marks, carry, touched
-    lists, frames); with ``ckpt_stride`` K, also what a gradient adds: P2G's
-    sums in double (32 B per cell), the sort by bin, the history of a
+    lists, frames, the sort by bin), and a rollout's P2G sums in float (16 B
+    per cell); with ``ckpt_stride`` K, instead what a gradient adds: P2G's
+    sums in double (32 B per cell), the history of a
     checkpoint every K substeps, the output and input cotangents, K3-bwd's
     scratch and, for K > 1, a segment of K carries."""
     conf = sim.conf
     rx, ry, rz = conf.res
     P, n_prim = sim.n_particles, len(sim.sdf_names)
     per_env = (rx * ry * rz * 20 + 4 * list_capacity(sim) + 4 + 2 * 4 * N_COMP * P
-               + 4 * (conf.steps + 1) * n_prim * (ROW + 7))
-    if ckpt_stride is not None:
+               + 4 * (conf.steps + 1) * n_prim * (ROW + 7) + 4 * bin_scratch(sim)[0])
+    if ckpt_stride is None:
+        per_env += 16 * rx * ry * rz
+    else:
         K = ckpt_stride
         floats, doubles = bwd_scratch(sim)
         per_env += (4 * math.ceil(conf.steps / K) * N_COMP * P + 2 * 4 * N_COMP * P
-                    + 32 * rx * ry * rz + 4 * bin_scratch(sim)[0] + 4 * floats + 8 * doubles
+                    + 32 * rx * ry * rz + 4 * floats + 8 * doubles
                     + 4 + (4 * K * N_COMP * P if K > 1 else 0))
     return B * per_env
 
@@ -187,13 +196,49 @@ def check_supported_big(sim, B=None, ckpt_stride=None):
                 f"than the card's {total / 2**30:.1f} GiB")
 
 
+# A rollout's scratch that must be 0 on entry (P2G's float sums, the marks
+# and the sort's counters), per simulator: K3-fwd leaves it at 0 again on
+# exit, so it is zeroed once and kept for the next rollout at the same batch
+# size on the same device and stream (one set per simulator).
+_ROLLOUT_SCRATCH = weakref.WeakKeyDictionary()
+
+
+def _rollout_scratch(sim, B, dev, key):
+    """(fsum, mark, bin_ints) of a rollout of ``sim`` at ``B`` envs on
+    ``dev``, kept under ``key`` (batch size, device and stream): the sums,
+    the marks and the sort's counters (``zeroed_parts``) are 0."""
+    kept = _ROLLOUT_SCRATCH.get(sim)
+    if kept is not None and kept[0] == key:
+        return kept[1]
+    _ROLLOUT_SCRATCH.pop(sim, None)
+    cells = math.prod(sim.conf.res)
+    scratch = (torch.zeros((B, cells, 4), dtype=torch.float32, device=dev),
+               torch.zeros((B, cells), dtype=torch.int32, device=dev),
+               torch.zeros((B * bin_scratch(sim)[0],), dtype=torch.int32, device=dev))
+    _ROLLOUT_SCRATCH[sim] = (key, scratch)
+    return scratch
+
+
+def zeroed_parts(sim, scratch):
+    """What of a kept rollout ``scratch`` must be 0 between rollouts: the
+    float sums, the marks and the sort's counters (the bins' and the bin
+    lists' counts, the first B (n_keys + 1) of its ints)."""
+    fsum, mark, bin_ints = scratch
+    return fsum, mark, bin_ints[:fsum.shape[0] * (bin_scratch(sim)[1] + 1)]
+
+
 def _call_big(sim, fields, frame, vw, *, what, K=1, hist=None, outs=(None,) * 7, segment=0,
               seg_out=None, bwd_in=None, bwd_out=None, gacc=None, mark=None):
     """One ``mpm_big_step_launch``: K3-fwd, K3-seg, K3-bwd or the
     gradient's P2G alone (``what``) on the forward's inputs ``fields`` (x,
     v, C, F, J, mu, lamda, yield_stress, friction; x..J may be None but for
-    K3-fwd); ``gacc`` and ``mark``, when given, are the P2G sums' and marks'
-    scratch. Returns the CUDA launches."""
+    K3-fwd); with a history, ``gacc`` and ``mark``, when given, are the P2G
+    sums' and marks' scratch. A rollout (no history) sums P2G in float in
+    the simulator's kept scratch and takes neither. Returns the CUDA
+    launches."""
+    if hist is None and (gacc is not None or mark is not None):
+        raise ValueError("a K3-fwd rollout sums P2G in its own float scratch: it takes no gacc "
+                         "or mark")
     conf = sim.conf
     B, P, dev = frame.shape[0], sim.n_particles, frame.device
     n_prim, steps = frame.shape[1], conf.steps
@@ -202,16 +247,20 @@ def _call_big(sim, fields, frame, vw, *, what, K=1, hist=None, outs=(None,) * 7,
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     grid = torch.empty((B, cells, 4), **f32)
-    # P2G's sums in double, and the sort by bin, where a gradient is wanted
-    # (see the source); the sort's counters start at 0
-    bin_ints, n_keys, bin_cap = None, 0, 0
-    if hist is not None:
+    # the sort by bin, whose counters start at 0, and P2G's sums: in double
+    # with a gradient, in float in a rollout, whose sums and marks start at 0
+    # too (see the source)
+    per_env, n_keys, bin_cap = bin_scratch(sim)
+    device, stream = _device_and_stream(dev)
+    fsum = None
+    if hist is None:
+        fsum, mark, bin_ints = _rollout_scratch(sim, B, dev, (B, dev, stream))
+    else:
+        bin_ints = torch.zeros((B * per_env,), **i32)
         if gacc is None:
             gacc = torch.empty((B, cells, 4), dtype=torch.float64, device=dev)
-        per_env, n_keys, bin_cap = bin_scratch(sim)
-        bin_ints = torch.zeros((B * per_env,), **i32)
-    if mark is None:
-        mark = torch.empty((B, cells), **i32)
+        if mark is None:
+            mark = torch.empty((B, cells), **i32)
     carry = torch.empty((B, N_COMP, P), **f32)
     rows = torch.empty((B, steps + 1, n_prim, ROW), **f32)
     touched = torch.empty((B, cap), dtype=torch.int32, device=dev)
@@ -224,7 +273,6 @@ def _call_big(sim, fields, frame, vw, *, what, K=1, hist=None, outs=(None,) * 7,
         bwd_ints = torch.empty((B,), **i32)
     grid_blocks = -(-min(cap, P) // THREADS)
     sdf_kinds = sum(SDF_KINDS[n] << i for i, n in enumerate(sim.sdf_names))
-    device, stream = _device_and_stream(dev)
     n_launches = ctypes.c_int(0)
     lib = _lib()
     err = lib.mpm_big_step_launch(
@@ -234,7 +282,7 @@ def _call_big(sim, fields, frame, vw, *, what, K=1, hist=None, outs=(None,) * 7,
         *_material("yield_stress", fields["yield_stress"], B, P, dev),
         fields["friction"].data_ptr(), fields["friction"].stride(0),
         sim._h.data_ptr(), sim._material.data_ptr(), frame.data_ptr(), vw.data_ptr(),
-        *(_ptr(t) for t in outs), grid.data_ptr(), _ptr(gacc), mark.data_ptr(),
+        *(_ptr(t) for t in outs), grid.data_ptr(), _ptr(gacc), _ptr(fsum), mark.data_ptr(),
         carry.data_ptr(),
         rows.data_ptr(), touched.data_ptr(), n_touched.data_ptr(), cap, grid_blocks,
         B, P, n_prim, steps, rx, ry, rz, conf.n_grid, int(sim.use_position_control), sdf_kinds,
@@ -246,6 +294,8 @@ def _call_big(sim, fields, frame, vw, *, what, K=1, hist=None, outs=(None,) * 7,
     )
     mpm_big_step.cuda_launches += n_launches.value
     if err != 0:
+        if hist is None:  # the kept scratch may no longer be 0
+            _ROLLOUT_SCRATCH.pop(sim, None)
         msg = lib.unidom_cuda_error_string(err).decode()
         name = ("K3-fwd", "K3-seg", "K3-bwd", "K3's P2G")[what]
         raise RuntimeError(

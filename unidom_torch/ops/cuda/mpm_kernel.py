@@ -20,11 +20,11 @@ SDF collision. ``mpm_step.launches``,
 K2-fwd and K2-bwd and the K2-seg phases that K2-bwd ran (plus launches of
 ``mpm_step_seg``).
 
-``launch_config`` sizes K2-bwd's launch: a thread-block cluster per env,
-its size from the batch and the card's SMs, the threads and shared memory of
-each CTA and the stride K. It raises, naming the sizes, for a configuration
-whose CTA would exceed the card's shared memory, before anything is built or
-launched.
+``fwd_launch_config`` and ``launch_config`` size K2-fwd's and K2-bwd's
+launches: a thread-block cluster per env, its size from the batch and the
+card's SMs, the threads and shared memory of each CTA and the stride K. They
+raise, naming the sizes, for a configuration whose CTA would exceed the
+card's shared memory, before anything is built or launched.
 
 The particle state crosses in the simulator's layout ((B, P, 3),
 (B, P, 3, 3), (B, P)); the primitives are packed into two small tensors; the
@@ -66,19 +66,25 @@ N_COMP = 25  # x 3, v 3, C 9, F 9, J 1
 # batches of the tests on K = 1.
 HISTORY_BUDGET = 64 * 2**20
 
-# K2-bwd's launch on an H100: a CTA may have SMEM_PER_BLOCK bytes of shared
-# memory, static and dynamic; BWD_STATIC_SMEM bounds the kernel's static part
-# (the primitives, the CTA's sums of their cotangents, its frames'
-# cotangents). A cluster has at most MAX_CLUSTER CTAs (the portable size),
-# a CTA at most BWD_MAX_THREADS threads (BWD_MAX_NT in the source: its
-# launch bounds, which cap the registers at 65,536 / 320 = 204 per thread)
-# and at least MIN_THREADS (one wave of whip_rope's 1024 envs keeps the
-# first design's 128 threads, 67 of them with a particle).
+# K2-fwd's and K2-bwd's launches on an H100: a CTA may have SMEM_PER_BLOCK
+# bytes of shared memory, static and dynamic; FWD_STATIC_SMEM and
+# BWD_STATIC_SMEM bound the kernels' static parts (the primitives; backward
+# also the CTA's sums of their cotangents and its frames' cotangents). A
+# cluster has at most MAX_CLUSTER CTAs (the portable size). A K2-fwd CTA has
+# at most FWD_MAX_THREADS threads (FWD_MAX_NT in the source: its launch
+# bounds, which cap the registers at 65,536 / 640 = 102 per thread), one
+# per particle of the CTA rounded up to a warp (whip_rope's 67 particles:
+# 96 threads). A K2-bwd CTA has at most BWD_MAX_THREADS (BWD_MAX_NT: 204
+# registers per thread) and at least MIN_THREADS (one wave of whip_rope's
+# 1024 envs keeps the first design's 128 threads, 67 of them with a
+# particle).
 SMEM_PER_BLOCK = 232_448
 N_SMS = 132
 MAX_CLUSTER = 8
+FWD_MAX_THREADS = 640
 BWD_MAX_THREADS = 320
 MIN_THREADS = 128
+FWD_STATIC_SMEM = 512
 BWD_STATIC_SMEM = 2048
 MIN_PARTICLES_PER_CTA = 32
 
@@ -112,10 +118,10 @@ def smem_bytes(P, cells, steps, n_prim, bwd):
 
 @dataclass(frozen=True)
 class LaunchConfig:
-    """K2-bwd's launch: ``cluster`` CTAs per env of ``threads`` threads,
-    each holding ``per_cta`` particles and a touched list of ``list_cap``
-    slots in ``smem`` bytes of dynamic shared memory; ``K`` the stride rule's
-    checkpoint stride."""
+    """K2-fwd's or K2-bwd's launch: ``cluster`` CTAs per env of ``threads``
+    threads, each holding ``per_cta`` particles and a touched list of
+    ``list_cap`` slots in ``smem`` bytes of dynamic shared memory; ``K`` the
+    stride rule's checkpoint stride."""
 
     cluster: int
     threads: int
@@ -123,6 +129,49 @@ class LaunchConfig:
     list_cap: int
     smem: int
     K: int
+
+
+def _launch(name, B, P, cells, steps, n_prim, cluster, bwd):
+    """The cluster rule of fwd_launch_config and launch_config: the cluster
+    doubles while B clusters of twice the size still fit the card's N_SMS
+    SMs in one wave and each CTA keeps MIN_PARTICLES_PER_CTA particles, and
+    further while a CTA's shared memory does not fit; ``cluster`` overrides
+    it. Returns (cluster, particles per CTA)."""
+    if min(B, P, cells, steps) < 1 or not 0 <= n_prim <= MAX_PRIMITIVES:
+        raise ValueError(f"B={B}, P={P}, cells={cells}, steps={steps}, n_prim={n_prim}")
+    if cluster is None:
+        cs = 1
+        while (cs < MAX_CLUSTER and 2 * cs * B <= N_SMS
+               and P >= 2 * cs * MIN_PARTICLES_PER_CTA):
+            cs *= 2
+        while cs < MAX_CLUSTER and _cta_smem(P, cs, cells, steps, n_prim, bwd) > SMEM_PER_BLOCK:
+            cs *= 2
+    else:
+        cs = int(cluster)
+        if not 1 <= cs <= MAX_CLUSTER:
+            raise ValueError(f"a cluster has 1 to {MAX_CLUSTER} CTAs, not {cs}")
+    per_cta = -(-P // cs)
+    need = _cta_smem(P, cs, cells, steps, n_prim, bwd)
+    if need > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"{name} on {P} particles, {cells} grid cells, {steps} substeps and {n_prim} "
+            f"primitives needs {need} bytes of shared memory per CTA in a cluster of {cs} "
+            f"({per_cta} particles each); a CTA may have {SMEM_PER_BLOCK}")
+    return cs, per_cta
+
+
+def fwd_launch_config(B, P, cells, steps, n_prim, cluster=None):
+    """K2-fwd's launch for B envs of P particles on ``cells`` grid cells,
+    ``steps`` substeps and ``n_prim`` primitives: the cluster as
+    launch_config picks it (shape_rope at 64 envs: 2, at 16: 8; whip_rope at
+    1024: 1), ``cluster`` overriding it; threads one per particle of a CTA,
+    rounded up to a warp, at most FWD_MAX_THREADS. Raises ValueError, naming
+    the sizes, when no cluster of at most MAX_CLUSTER CTAs holds the env."""
+    cs, per_cta = _launch("K2-fwd", B, P, cells, steps, n_prim, cluster, False)
+    threads = min(-(-per_cta // 32) * 32, FWD_MAX_THREADS)
+    return LaunchConfig(cs, threads, per_cta, list_capacity(per_cta, cells),
+                        smem_bytes(per_cta, cells, steps, n_prim, False),
+                        checkpoint_stride(B, P, steps))
 
 
 def launch_config(B, P, cells, steps, n_prim, cluster=None):
@@ -135,34 +184,16 @@ def launch_config(B, P, cells, steps, n_prim, cluster=None):
     particle of a CTA, rounded up to a warp, within [MIN_THREADS,
     BWD_MAX_THREADS]. Raises ValueError, naming the sizes, when no cluster
     of at most MAX_CLUSTER CTAs holds the env."""
-    if min(B, P, cells, steps) < 1 or not 0 <= n_prim <= MAX_PRIMITIVES:
-        raise ValueError(f"B={B}, P={P}, cells={cells}, steps={steps}, n_prim={n_prim}")
-    if cluster is None:
-        cs = 1
-        while (cs < MAX_CLUSTER and 2 * cs * B <= N_SMS
-               and P >= 2 * cs * MIN_PARTICLES_PER_CTA):
-            cs *= 2
-        while cs < MAX_CLUSTER and _cta_smem(P, cs, cells, steps, n_prim) > SMEM_PER_BLOCK:
-            cs *= 2
-    else:
-        cs = int(cluster)
-        if not 1 <= cs <= MAX_CLUSTER:
-            raise ValueError(f"a cluster has 1 to {MAX_CLUSTER} CTAs, not {cs}")
-    per_cta = -(-P // cs)
-    need = _cta_smem(P, cs, cells, steps, n_prim)
-    if need > SMEM_PER_BLOCK:
-        raise ValueError(
-            f"K2-bwd on {P} particles, {cells} grid cells, {steps} substeps and {n_prim} "
-            f"primitives needs {need} bytes of shared memory per CTA in a cluster of {cs} "
-            f"({per_cta} particles each); a CTA may have {SMEM_PER_BLOCK}")
+    cs, per_cta = _launch("K2-bwd", B, P, cells, steps, n_prim, cluster, True)
     threads = min(max(-(-per_cta // 32) * 32, MIN_THREADS), BWD_MAX_THREADS)
     return LaunchConfig(cs, threads, per_cta, list_capacity(per_cta, cells),
                         smem_bytes(per_cta, cells, steps, n_prim, True),
                         checkpoint_stride(B, P, steps))
 
 
-def _cta_smem(P, cs, cells, steps, n_prim):
-    return smem_bytes(-(-P // cs), cells, steps, n_prim, True) + BWD_STATIC_SMEM
+def _cta_smem(P, cs, cells, steps, n_prim, bwd):
+    return (smem_bytes(-(-P // cs), cells, steps, n_prim, bwd)
+            + (BWD_STATIC_SMEM if bwd else FWD_STATIC_SMEM))
 
 
 @functools.cache
@@ -171,30 +202,39 @@ def _lib():
     lib.mpm_step_launch.argtypes = (
         [_PTR] * 5 + [_PTR, _INT, _INT] * 3 + [_PTR, _INT] + [_PTR] * 4 + [_PTR] * 9
         + [_PTR, _INT] + [_INT] * 10 + [_FLOAT] * 8 + [_INT, _PTR]
-        + [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT] + [_INT] * 3 + [_LL]
+        + [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT] + [_INT] * 3 + [_LL, _PTR]
     )
     lib.mpm_step_launch.restype = ctypes.c_int
     lib.mpm_step_smem_bytes.argtypes = [_INT] * 5
     lib.mpm_step_smem_bytes.restype = ctypes.c_size_t
-    lib.mpm_step_bwd_kernel_info.argtypes = [_INT, _LL, _INT, _INT, _PTR]
-    lib.mpm_step_bwd_kernel_info.restype = ctypes.c_int
+    lib.mpm_step_kernel_info.argtypes = [_INT, _INT, _LL, _INT, _INT, _PTR]
+    lib.mpm_step_kernel_info.restype = ctypes.c_int
     lib.unidom_cuda_error_string.argtypes = [ctypes.c_int]
     lib.unidom_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def bwd_kernel_info(cfg, device):
-    """What the card makes of K2-bwd at ``cfg`` (a LaunchConfig): registers
-    and local memory (bytes) per thread, static shared memory (bytes), blocks
-    per SM (the occupancy API) and clusters of ``cfg.cluster`` the card holds
-    at once."""
+def _kernel_info(bwd, cfg, device):
     out = (ctypes.c_int * 5)()
-    err = _lib().mpm_step_bwd_kernel_info(cfg.threads, cfg.smem, cfg.cluster, device, out)
+    err = _lib().mpm_step_kernel_info(int(bwd), cfg.threads, cfg.smem, cfg.cluster, device, out)
     if err != 0:
-        raise RuntimeError(f"K2-bwd kernel info for {cfg}: "
+        raise RuntimeError(f"{'K2-bwd' if bwd else 'K2-fwd'} kernel info for {cfg}: "
                            f"{_lib().unidom_cuda_error_string(err).decode()} (error {err})")
     return dict(zip(("registers", "local_bytes", "static_smem", "blocks_per_sm",
                      "clusters"), out))
+
+
+def fwd_kernel_info(cfg, device):
+    """What the card makes of K2-fwd at ``cfg`` (a LaunchConfig): registers
+    and local memory (bytes) per thread, static shared memory (bytes), blocks
+    per SM (the occupancy API) and clusters of ``cfg.cluster`` the card holds
+    at once."""
+    return _kernel_info(False, cfg, device)
+
+
+def bwd_kernel_info(cfg, device):
+    """The same for K2-bwd."""
+    return _kernel_info(True, cfg, device)
 
 
 def _device_and_stream(dev):
@@ -273,10 +313,12 @@ def _pointer_array(tensors):
 
 
 def _call(sim, fields, frame, vw, *, what, K=1, hist=None, outs=(None,) * 7, segment=0,
-          seg_out=None, bwd_in=None, bwd_out=None, scratch=None, cfg=None):
-    """One ``mpm_step_launch``: K2-fwd, K2-seg or K2-bwd (``what``, launched
-    as ``cfg`` says) on the forward's inputs ``fields`` (x, v, C, F, J, mu,
-    lamda, yield_stress, friction; x..J may be None but for K2-fwd)."""
+          seg_out=None, bwd_in=None, bwd_out=None, scratch=None, cfg=None, clocks=None):
+    """One ``mpm_step_launch``: K2-fwd, K2-seg or K2-bwd (``what``; K2-fwd
+    and K2-bwd launched as ``cfg`` says) on the forward's inputs ``fields``
+    (x, v, C, F, J, mu, lamda, yield_stress, friction; x..J may be None but
+    for K2-fwd); ``clocks`` (6 int64, zeros), when given, takes K2-fwd's
+    phase split (StampedSync in the source)."""
     conf = sim.conf
     B, P, dev = frame.shape[0], sim.n_particles, frame.device
     n_prim, steps = frame.shape[1], conf.steps
@@ -302,7 +344,7 @@ def _call(sim, fields, frame, vw, *, what, K=1, hist=None, outs=(None,) * 7, seg
         device, stream,
         what, segment, _ptr(seg_out), _pointer_array(bwd_in), _pointer_array(bwd_out),
         _ptr(scratch), *((cfg.list_cap, cfg.cluster, cfg.threads, cfg.per_cta, cfg.smem)
-                         if cfg else (0, 1, 0, 0, 0)),
+                         if cfg else (0, 1, 0, 0, 0)), _ptr(clocks),
     )
     if err != 0:
         msg = lib.unidom_cuda_error_string(err).decode()
@@ -338,14 +380,20 @@ def _inputs(sim, state, check=check_supported):
     return fields, frame, vw
 
 
-def _forward(sim, fields, frame, vw, K=1, hist=None):
-    """K2-fwd. Returns (x, v, C, F, J, traj_pos, traj_rot)."""
-    B, n_prim, steps = frame.shape[0], frame.shape[1], sim.conf.steps
+def _forward(sim, fields, frame, vw, K=1, hist=None, cluster=None, clocks=None):
+    """K2-fwd, launched as fwd_launch_config says (``cluster`` overriding
+    its cluster size; ``clocks`` as for _call). Returns (x, v, C, F, J,
+    traj_pos, traj_rot)."""
+    conf = sim.conf
+    B, n_prim, steps = frame.shape[0], frame.shape[1], conf.steps
     dev = frame.device
+    cfg = fwd_launch_config(B, sim.n_particles, conf.res[0] * conf.res[1] * conf.res[2], steps,
+                            n_prim, cluster)
     outs = [torch.empty_like(fields[n]) for n in ("x", "v", "C", "F", "J")]
     traj_pos = torch.empty((B, n_prim, steps + 1, 3), dtype=torch.float32, device=dev)
     traj_rot = torch.empty((B, n_prim, steps + 1, 4), dtype=torch.float32, device=dev)
-    _call(sim, fields, frame, vw, what=_FWD, K=K, hist=hist, outs=(*outs, traj_pos, traj_rot))
+    _call(sim, fields, frame, vw, what=_FWD, K=K, hist=hist, outs=(*outs, traj_pos, traj_rot),
+          cfg=cfg, clocks=clocks)
     mpm_step.launches += 1
     return (*outs, traj_pos, traj_rot)
 
