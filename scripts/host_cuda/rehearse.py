@@ -7,7 +7,9 @@ emulated), optionally with every ``float`` a ``double``, loads them through
 copies of the wrappers (``ops/cuda/mpm_kernel.py`` and ``mpm_big_kernel.py``)
 and holds the kernels against the plain step in the same precision: the
 VJPs of one macro step against its autograd, on every input cotangent (``k2``,
-``k3``), and the forward alone, no gradient, on every output (``k2fwd``:
+with K2-seg launched alone against the plain forward's carries; ``k3`` at
+K = 1, 2 and 3, with K3-seg's recorded grids against the gradient's P2G of
+the same carries), and the forward alone, no gradient, on every output (``k2fwd``:
 K2-fwd at clusters of 1, 2, 4 and 8; ``k3fwd``: K3-fwd's rollout, P2G in
 bin order with float sums, twice on the scratch it keeps, which must be 0
 again after each call). In float64 the kernels must
@@ -216,14 +218,41 @@ def rehearse_k2(mk, dtype, steps, clusters):
                 worst = max(worst, compare(
                     f"K2 {name} cluster {cl or 'rule'} K={K}, {time.perf_counter() - t0:.1f} s",
                     k, plain, names))
+            if name == "shape_rope":  # K2-seg alone, launched as K2-bwd runs it
+                worst = max(worst, rehearse_k2seg(mk, ksim, s, a, cl))
             mk.launch_config = launch_config
+    return worst
+
+
+def rehearse_k2seg(mk, sim, s, a, cluster):
+    """K2-seg alone at K = 2 (launch_config as patched: ``cluster`` CTAs),
+    every segment's carries against the plain forward's."""
+    steps = sim.conf.steps
+    with torch.no_grad():
+        prepared = sim.prepare(s, a)
+        carries, st = [], prepared
+        for f in range(steps):
+            carries.append(mk.pack_carry(st))
+            st = sim._substep(f, st)
+        _, hist = mk.launch(sim, prepared, 2)
+        worst = 0.0
+        for sg in range(-(-steps // 2)):
+            seg = mk.mpm_step_seg(sim, prepared, hist, 2, sg)
+            for j in range(seg.shape[1]):
+                ref = carries[2 * sg + j]
+                worst = max(worst, ((seg[:, j] - ref).norm() / ref.norm()).item())
+    print(f"[K2-seg alone shape_rope cluster {cluster or 'rule'} K=2] every segment's carries "
+          f"against the plain forward's: relative error {worst:.1e}", flush=True)
     return worst
 
 
 def rehearse_k3(mbk, dtype):
     """K3-bwd (under autograd of K3-fwd with checkpoints) on
-    tests/test_torch_mpm_big.py's configs (4 substeps) at K = 1 and 2; and
-    the recomputed P2G grid against the forward's."""
+    tests/test_torch_mpm_big.py's configs (4 substeps) at K = 1, 2 and 3
+    (3: a segment of 3 and a short last one of 1); and, for each segment at
+    K = 2 and 3, K3-seg's carries against the exact history's and its
+    recorded grids (each touched cell's momentum and mass before the grid
+    ops) against the gradient's P2G of the same carry (``p2g_sums``)."""
     sys.path.insert(0, str(ROOT / "tests"))
     from test_torch_mpm_big import CONFIGS
 
@@ -247,7 +276,7 @@ def rehearse_k3(mbk, dtype):
         cot = [c.to(dtype) for c in cs.mpm_vjp_cot(s)]
         names = cs.mpm_vjp_names(n_prim)
         plain = cs.mpm_vjp(sim._step_plain, s, a, cot)
-        for K in (1, 2):
+        for K in (1, 2, 3):
             t0 = time.perf_counter()
             k = cs.mpm_vjp(lambda s_, a_: mbk.kernel_step_big(ksim, ksim.prepare(s_, a_), K),
                            s, a, cot)
@@ -255,16 +284,32 @@ def rehearse_k3(mbk, dtype):
                                        f"{time.perf_counter() - t0:.1f} s", k, plain, names))
         with torch.no_grad():
             prepared = ksim.prepare(s, a)
-            gacc = torch.zeros((1, int(np.prod(sim.conf.res)), 4), dtype=torch.float64)
-            mark = torch.zeros((1, int(np.prod(sim.conf.res))), dtype=torch.int32)
-            _, hist = mbk.launch_big(ksim, prepared, 1, gacc=gacc, mark=mark)
-            re_gacc, re_mark = mbk.p2g_sums(ksim, prepared, hist, 1, steps - 1)
-            on = re_mark.bool()
-            diff = (gacc[on] - re_gacc[on]).abs().max().item()
-            print(f"[K3 {name}] the recomputed P2G grid of substep {steps - 1} against the "
-                  f"forward's, over its {int(on.sum())} touched cells: max abs difference "
-                  f"{diff:.3e} (max |value| {re_gacc[on].abs().max().item():.3e}); the touched "
-                  f"cells the same: {bool(torch.equal(mark.bool() & on, on))}", flush=True)
+            _, exact = mbk.launch_big(ksim, prepared, 1)
+            sums = [mbk.p2g_sums(ksim, prepared, exact, 1, t) for t in range(steps)]
+            for K in (2, 3):
+                _, hist = mbk.launch_big(ksim, prepared, K)
+                carry_err = grid_err = 0.0
+                same_cells = True
+                for sg in range(-(-steps // K)):
+                    seg, rec = mbk.mpm_big_step_seg(ksim, prepared, hist, K, sg, with_record=True)
+                    L = seg.shape[1]
+                    grids, marks = mbk.recorded_grids(ksim, rec, L)
+                    for j in range(L):
+                        t = sg * K + j
+                        carry_err = max(carry_err, (seg[:, j] - exact[:, t]).abs().max().item())
+                        gacc, mark = sums[t]
+                        on = mark.bool()
+                        same_cells &= bool(torch.equal(marks[j], on))
+                        grid_err = max(grid_err, (grids[j][on].double() - gacc[on]).abs().max()
+                                       .item() / gacc[on].abs().max().item())
+                print(f"[K3-seg {name} K={K}] every segment's carries against the exact "
+                      f"history's: max abs difference {carry_err:.3e}; the recorded grids "
+                      f"against the gradient's P2G of the same carries: max abs difference "
+                      f"{grid_err:.3e} of the largest value; the same touched cells: "
+                      f"{same_cells}", flush=True)
+                worst = max(worst, grid_err)
+                if not same_cells:
+                    raise SystemExit(f"K3-seg recorded other touched cells than P2G marks on {name}")
     return worst
 
 

@@ -35,6 +35,7 @@ from unidom_torch.ops.cuda.mpm_big_kernel import (
     check_supported_big,
     list_capacity,
     mpm_big_step,
+    record_bytes,
     scratch_bytes,
 )
 from unidom_torch.ops.cuda.mpm_kernel import MAX_CELLS, MAX_PARTICLES, mpm_step
@@ -198,16 +199,23 @@ def test_big_kernel_sizes():
         check_supported_big(sim, 65536)
 
 
-@pytest.mark.parametrize("name, conf, P, sdfs", [
-    ("pour_soup", PourSoupConf, 7694, ["container"] * 2),
-    ("shape_elasto_plastic", ShapeElastoPlasticConf, 23940, ["box"]),
+@pytest.mark.parametrize("name, conf, P, sdfs, n_envs, K, record_mb", [
+    ("pour_soup", PourSoupConf, 7694, ["container"] * 2, 3, 4, 50.23),
+    ("shape_elasto_plastic", ShapeElastoPlasticConf, 23940, ["box"], 3, 4, 18.84),
+    # the stride rule's K at the widths the card trains: the record of a
+    # segment's grids, list_cap (4 + 16 B) per slot and 4 B per particle
+    ("shape_elasto_plastic", ShapeElastoPlasticConf, 23940, ["box"], 16, 4, 100.5),
+    ("pour_soup", PourSoupConf, 7694, ["container"] * 2, 32, 5, 669.7),
 ])
-def test_big_scratch_counts_the_sort_in_a_rollout(name, conf, P, sdfs):
+def test_big_scratch_counts_the_sort_in_a_rollout(name, conf, P, sdfs, n_envs, K, record_mb):
     """A rollout sorts by bin as a gradient's forward does: its scratch
     counts the sort's ints (each bin's counter, the bin list, each
     particle's bin, rank and slot) and P2G's float sums (16 B per cell); a
     gradient's counts the double sums (32 B per cell) instead of the float
-    ones."""
+    ones, K3-seg's record of K substeps' grids for K3-bwd (per slot the
+    touched list's capacity at 20 B, cell and momentum and mass, and the
+    particles' bin order at 4 B) and, for K > 1, the float scratch that
+    K3-seg sums in, which the simulator keeps between calls."""
     sim = _sim_of(conf, P, sdfs)
     rx, ry, rz = conf.res
     cells = rx * ry * rz
@@ -218,11 +226,16 @@ def test_big_scratch_counts_the_sort_in_a_rollout(name, conf, P, sdfs):
     base = (20 * cells + 4 * list_capacity(sim) + 4 + 8 * 25 * P
             + 4 * (conf.steps + 1) * len(sdfs) * 14)
     assert rollout == base + 4 * n_ints + 16 * cells
-    K = 4
     floats, doubles = bwd_scratch(sim)
-    assert scratch_bytes(sim, 3, K) == 3 * (
+    assert floats == 4 * cells + 25 * P + 4 * 7  # the record holds each cell before the grid ops
+    record = K * (20 * list_capacity(sim) + 4 + 4 * P)
+    assert record_bytes(sim, K) == record
+    assert n_envs * record / 1e6 == pytest.approx(record_mb, abs=0.05)
+    assert scratch_bytes(sim, n_envs, K) == n_envs * (
         base + 4 * n_ints + 32 * cells + 4 * -(-conf.steps // K) * 25 * P + 8 * 25 * P
-        + 4 * floats + 8 * doubles + 4 + 4 * K * 25 * P)
+        + 4 * floats + 8 * doubles + 4 + record + 4 * K * 25 * P
+        # K > 1: K3-seg's float sums, marks and sort, kept between calls
+        + (20 * cells + 4 * n_ints if K > 1 else 0))
 
 
 def test_rollout_keeps_its_zeroed_scratch_per_simulator():

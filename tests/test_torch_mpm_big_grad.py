@@ -11,6 +11,8 @@ the action. Also a grazing push in float64 against the XLA oracle's, and
 K3's checkpoint stride rule at the sizes the card runs.
 Inputs are made with numpy from a seed and fed to both sides."""
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -214,17 +216,56 @@ def test_k3_stride_rule(conf, P, n_envs, K, exact_mb):
     assert checkpoint_stride(n_envs, P, conf.steps) == K
 
 
-def test_k3_gradient_memory_check():
+@pytest.mark.parametrize("conf, P, sdfs, n_envs, K, history_bytes", [
+    # 153 MB of checkpoints per call, and the record of a segment's grids
+    (ShapeElastoPlasticConf, 23940, ["box"], 16, 4, 153_216_000),
+    # pour_soup's K3-bwd at the stride rule's K: 123 MB of checkpoints, and
+    # a record of ~670 MB (2 x 5 x 207,738 touched-list slots per env)
+    (PourSoupConf, 7694, ["container"] * 2, 32, 5, 123_104_000),
+])
+def test_k3_gradient_memory_check(monkeypatch, conf, P, sdfs, n_envs, K, history_bytes):
     """With a gradient the device-memory check counts the history at the
-    rule's K, the cotangents and K3-bwd's scratch: shape_elasto_plastic at
-    16 envs keeps 153 MB of checkpoints per call."""
-    sim = MPMSimulator(ShapeElastoPlasticConf, 16, device="cpu")
-    sim.n_particles, sim.sdf_names = 23940, ["box"]
-    fwd, grad = scratch_bytes(sim, 16), scratch_bytes(sim, 16, ckpt_stride=4)
-    history = 16 * 4 * 25 * 23940 * 4
-    assert history == 153_216_000
-    assert grad - fwd > history
-    check_supported_big(sim, 16, ckpt_stride=4)
+    rule's K, the cotangents, K3-bwd's scratch, K3-seg's record of a
+    segment's grids and the float scratch K3-seg sums in, which the
+    simulator keeps between calls; a batch that holds everything but the
+    record, or everything but that scratch, is refused in Python, before
+    the library loads or anything launches."""
+    from unidom_torch.ops.cuda import mpm_big_kernel as mbk
+
+    sim = MPMSimulator(conf, n_envs, device="cpu")
+    sim.n_particles, sim.sdf_names = P, list(sdfs)
+    assert checkpoint_stride(n_envs, P, conf.steps) == K
+    fwd, grad = scratch_bytes(sim, n_envs), scratch_bytes(sim, n_envs, ckpt_stride=K)
+    history = n_envs * -(-conf.steps // K) * 25 * P * 4
+    assert history == history_bytes
+    record = n_envs * mbk.record_bytes(sim, K)
+    assert record == n_envs * K * (20 * mbk.list_capacity(sim) + 4 + 4 * P)
+    kept = n_envs * mbk.kept_scratch_bytes(sim)
+    cells = conf.res[0] * conf.res[1] * conf.res[2]
+    assert kept == n_envs * (20 * cells + 4 * mbk.bin_scratch(sim)[0])
+    assert grad - fwd > history + record + kept
+    check_supported_big(sim, n_envs, ckpt_stride=K)  # on the CPU: no device memory to check
+
+    def card(total):
+        monkeypatch.setattr(torch.cuda, "get_device_properties",
+                            lambda dev: types.SimpleNamespace(total_memory=total))
+
+    def no_library():
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(sim, "device", torch.device("cuda"))
+    monkeypatch.setattr(mbk, "_lib", no_library)
+    card(grad)
+    check_supported_big(sim, n_envs, ckpt_stride=K)
+    state = types.SimpleNamespace(x=torch.zeros(n_envs, P, 3))
+    for part, nbytes in (("record_bytes", record), ("kept_scratch_bytes", kept)):
+        with monkeypatch.context() as m:  # the count without this part
+            m.setattr(mbk, part, lambda *args: 0)
+            rest = scratch_bytes(sim, n_envs, ckpt_stride=K)
+        assert grad - rest == nbytes
+        card(rest)  # all of it but this part
+        with pytest.raises(NotImplementedError, match="device memory"):
+            mbk.kernel_step_big(sim, state, K)
 
 
 # ---------------------------------------------------------------- a grazing push in float64

@@ -18,18 +18,19 @@
 // kinematics. In a rollout nothing is differentiated, so it writes no
 // history; with a gradient wanted it also writes the carry of every K-th
 // substep (K from ops/cuda/mpm_big_kernel.py's stride rule). K3-seg re-runs
-// a segment of up to K substeps from its checkpoint with K3-fwd's launches
-// and writes each substep's input carry. K3-bwd is the macro step's
-// adjoint: per substep, in reverse, from the substep's input carry (the
-// history at K = 1, else the segment K3-seg wrote) it recomputes the raw
-// P2G grid and its touched list, runs the grid ops into the post-op grid
-// keeping each cell's momentum and mass, then takes the adjoints of G2P (a
-// gather of the post-op grid; the nodes' cotangents scatter into the grid
-// cotangent's double sums), of the grid ops per touched cell (with
-// collide's adjoint), of P2G (a gather from the grid cotangent) and the
-// stress, return maps, SVD and F update, and of the primitives' forward
-// kinematics: the per-particle and per-cell bodies of mpm_device.cuh that
-// K2-bwd runs.
+// a segment of L <= K substeps from its checkpoint with a rollout's launches,
+// writes each substep's input carry and records each substep's grid (below),
+// the segment's last carry's P2G and grid ops included. K3-bwd is the macro
+// step's adjoint: per substep, in reverse, from the substep's input carry,
+// it rebuilds the post-op grid on the touched cells from what K3-seg
+// recorded (with K = 1, the exact history, it recomputes the raw P2G grid
+// and its touched list and runs the grid ops, keeping each cell's momentum
+// and mass), then takes the adjoints of G2P (a gather of the post-op grid;
+// the nodes' cotangents scatter into the grid cotangent's double sums), of
+// the grid ops per touched cell (with collide's adjoint), of P2G (a gather
+// from the grid cotangent) and the stress, return maps, SVD and F update,
+// and of the primitives' forward kinematics: the per-particle and per-cell
+// bodies of mpm_device.cuh that K2-bwd runs.
 //
 // What bounds it on this card: operations, as K2-fwd (3,397 float32
 // operations per particle-substep and ~78 per touched cell): pour_soup at 32
@@ -80,10 +81,19 @@
 //     each touched cell back to 0 after reading it, so no launch zeroes the
 //     27 nodes of every particle's stencil (on pour_soup at 32 envs that
 //     zeroing took as long as P2G).
-//   - With a gradient (K3-fwd with checkpoints, K3-seg, K3-bwd's recompute:
-//     one code path), P2G sums in double, so that its result does not
-//     depend on the order of the sums at float32's precision: K3-bwd
-//     recomputes each substep's grid from the saved carry and so takes the
+//   - K3-seg sums P2G in float, as a rollout does (the same launches, its
+//     sums and marks 0 on entry and on exit; the wrapper keeps them zeroed
+//     per simulator): K3-bwd's adjoint of a substep reads the grid that
+//     K3-seg's own G2P read, recorded, so nothing has to reproduce a grid.
+//     Summed in double in device memory instead, K3-seg's P2G took 0.18 ms
+//     per launch against 0.148 in float, and K3-bwd per shape_elasto_plastic
+//     call at 16 envs 13.91 against 12.80 ms; over the block in shared memory
+//     first (a box of nodes, the bins in key order), 0.25 ms: sm_90a has no
+//     shared-memory double atomic add (the SASS holds ATOMS.CAST.SPIN.64
+//     loops). Both sums pass [big-bwd-parity] (H100; PERF.md).
+//   - K3-fwd with checkpoints and K3-bwd's recompute at K = 1 (the exact
+//     history) sum P2G in double, so that the result does not depend on the
+//     order of the sums at float32's precision: the recompute takes the
 //     adjoint at the grid the forward used (with float sums in another
 //     order, shape_elasto_plastic's primitive cotangents, sums of
 //     1/dt-amplified terms that cancel, landed 2.3x further from float64
@@ -102,12 +112,36 @@
 //     once per env in the pack launch, as K2-fwd does.
 //   - Every per-env offset is taken in size_t (pour_soup at 128 envs holds
 //     more than 2^31 bytes of grid).
-//   - K3-bwd's reversed substep: zero the stencils and count (only where the
-//     previous launch has not: at a segment's last carry), the scan, P2G,
-//     the grid ops keeping each cell's momentum and mass, G2P's adjoint,
-//     the grid ops' adjoint and the forward kinematics', the particle
-//     adjoint with the next reversed substep's zeroing and count: six
-//     launches. The per-env sums (the primitives' cotangents of a substep,
+//   - K3-seg records, for each substep t0 .. t0 + L - 1 of its segment, what
+//     K3-bwd's reversed substep reads of the forward (K slots per env, one
+//     per substep of the segment; BigRecord): the touched cells and their
+//     count, each touched cell's momentum and mass before the grid ops, and
+//     the particles' bin order (the permutation: G2P's adjoint scatters by
+//     it, and WarpScatter finds each lane's bin from x itself, so a
+//     particle's bin and rank need no slot). Its P2G launches write the
+//     cells into the slot's list, the grid ops the momentum and mass, the
+//     bins' scan the permutation; a last P2G and grid ops, with no G2P,
+//     record the segment's last carry. No later launch writes a slot before
+//     K3-bwd has read it: the slots are the record's alone (G2P's launch
+//     counts the next substep's particles and the grid ops put the sums
+//     back to 0, in storage of their own). A slot holds
+//     list_cap cells, the list's own bound, not the substep's touched count:
+//     the count is known only on the card, after P2G, and the layout is
+//     fixed before the launch sequence, where the wrapper sizes the scratch
+//     and refuses a batch that cannot hold it.
+//   - K3-bwd's reversed substep with K > 1: the post-op grid rebuilt on the
+//     slot's cells from their recorded momentum and mass (grid_op_value, the
+//     forward's own code on the same input) and the grid cotangent's double
+//     sums zeroed there (exactly the cells G2P's adjoint scatters to: every
+//     in-grid node of a particle's stencil was marked), G2P's adjoint, the
+//     grid ops' adjoint and the forward kinematics', the particle adjoint:
+//     four launches, no zeroing of stencils, no scan and no P2G. With K = 1
+//     (the exact history, no K3-seg; the stride rule gives it only to small
+//     batches): zero the stencils and count (only where the previous launch
+//     has not), the scan, P2G, the grid ops keeping each cell's momentum and
+//     mass in slot 0, then the same three adjoints, the particle adjoint
+//     with the next reversed substep's zeroing and count: six launches. The
+//     per-env sums (the primitives' cotangents of a substep,
 //     the ground friction's, the Lame parameters' and yield stress's when
 //     they are per env) sum per thread, over a warp by shuffles and over a
 //     block in shared memory in double, then one double atomicAdd per block
@@ -120,10 +154,10 @@
 //     bins' counters (4 B per bin) and list, each particle's bin, rank in
 //     its bin and sorted slot (12 B); with a gradient P2G's double sums (32
 //     B per cell); K3-bwd's: the grid cotangent's
-//     double sums (32 B per cell) and float4 (16 B), each touched cell's
-//     momentum and mass before the grid ops (16 B per list slot), the
-//     carry's cotangent and the per-particle accumulators, and with K > 1 a
-//     segment of K carries.
+//     double sums (32 B per cell) and float4 (16 B), the carry's cotangent
+//     and the per-particle accumulators, the record (K slots of list_cap
+//     cells at 20 B and P particles at 4 B), and with K > 1 a segment of K
+//     carries.
 //   - IEEE division and square roots; atomics add in a varying order, so
 //     a rollout is not bitwise reproducible from run to run, and a
 //     gradient's double sums only where one lies at a float's rounding
@@ -176,11 +210,21 @@ struct BigBwd {
   float* cot;                           // (B, N_COMP, P): the carry's cotangent
   GridAcc* dsum;                        // (B, cells): G2P's adjoint's sums, in double
   float4* dgrid;                        // (B, cells): cotangent of momentum xyz and mass
-  float4* pre;                          // (B, list_cap): each touched cell before the grid ops
+  float4* pre;                          // (B, list_cap): the substep's record slot's momentum and mass
   float* dpq;                           // (B, MAX_PRIM, 7): the current frame's cotangent
   double* pacc;                         // (B, 3, P): mu, lamda, yield stress per particle
   double* eacc;                         // (B, N_EACC)
   int* done;                            // (B,): blocks of the grid ops' adjoint finished
+};
+
+// K3-seg's record of a segment's grids for K3-bwd, K slots (one per substep
+// of the segment), slot j of env b at j * B + b: what BigArgs' touched list,
+// count and permutation and K3-bwd's pre hold for one substep
+struct BigRecord {
+  float4* pre;  // (K, B, list_cap): each touched cell's momentum and mass before the grid ops
+  int* cells;   // (K, B, list_cap): the touched cells
+  int* n;       // (K, B): how many
+  int* perm;    // (K, B, P): the particles in bin order
 };
 
 __device__ __forceinline__ size_t env_cells(const Args& g) { return (size_t)g.rx * g.ry * g.rz; }
@@ -264,11 +308,11 @@ __global__ void __launch_bounds__(NT) big_pack_kernel(Args g, BigArgs a, int zer
 }
 
 // 1. with a gradient: the carry copied in from a.src and out to a.save where
-// they are set, then P2G's double sums (and the grid cotangent's, when dsum
-// is set) and the marks under each particle's stencil to 0; with `count`,
-// each particle counted into its bin
-__global__ void __launch_bounds__(NT) big_zero_kernel(Args g, BigArgs a, GridAcc* dsum,
-                                                      int count) {
+// they are set, then each particle zeroed and counted as zero_and_count<G>
+// does (and the grid cotangent's sums under its stencil zeroed, when dsum is
+// set)
+template <class G>
+__global__ void __launch_bounds__(NT) big_zero_kernel(Args g, BigArgs a, GridAcc* dsum) {
   const int b = blockIdx.y, P = g.P;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (blockIdx.x == 0 && threadIdx.x == 0) a.n_touched[b] = 0;
@@ -280,13 +324,7 @@ __global__ void __launch_bounds__(NT) big_zero_kernel(Args g, BigArgs a, GridAcc
   }
   if (a.save) save_carry(ps, P, p, a, b);
   const float x[3] = {ps[IX * P + p], ps[(IX + 1) * P + p], ps[(IX + 2) * P + p]};
-  if (count) {
-    zero_and_count<GridAcc>(x, p, g, a, b, dsum);
-    return;
-  }
-  const size_t cells = env_cells(g);
-  zero_stencil(x, g, a.gacc + (size_t)b * cells, g.mark + (size_t)b * cells,
-               dsum ? dsum + (size_t)b * cells : dsum);
+  zero_and_count<G>(x, p, g, a, b, dsum);
 }
 
 // 1b. the bins' counts into offsets (an exclusive scan over
@@ -534,6 +572,28 @@ __global__ void __launch_bounds__(NT) big_grid_bwd_kernel(Args g, BigArgs a, Big
   if (tid == 0) w.done[b] = 0;
 }
 
+// 3''. K3-bwd with a record: the grid after the grid ops of substep f on the
+// slot's touched cells, from their momentum and mass before them, and the
+// grid cotangent's double sums there to 0 for G2P's adjoint
+__global__ void __launch_bounds__(NT) big_rebuild_kernel(Args g, BigArgs a, BigBwd w, int f) {
+  __shared__ Prim prims[MAX_PRIM];
+  const int b = blockIdx.y;
+  if (threadIdx.x == 0) load_prims(g, b, f, env_rows(g, a, b), prims);
+  __syncthreads();
+  const int n = a.n_touched[b];
+  const int* touched = a.touched + (size_t)b * a.list_cap;
+  const float4* pre = w.pre + (size_t)b * a.list_cap;
+  const size_t cells = env_cells(g);
+  float4* grid = g.grid + (size_t)b * cells;
+  GridAcc* dsum = w.dsum + (size_t)b * cells;
+  const float gf = g.ground_friction[(size_t)b * g.gf_sb];
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    const int cell = touched[i];
+    grid[cell] = grid_op_value(cell, pre[i], prims, gf, g);
+    grid_zero(dsum, cell);
+  }
+}
+
 // 2''. P2G's adjoint (a gather from the grid cotangent) and the stress's,
 // the return maps', the SVD's and F's update's; with `next` (env b's carry
 // of the next reversed substep at next + b * next_stride), that carry's
@@ -600,7 +660,7 @@ __global__ void __launch_bounds__(NT) big_bwd_finish_kernel(Args g, BigBwd w, in
 template <typename F>
 cudaError_t kernel_attributes(int which, F&& with) {
   switch (which) {
-    case 0: return with((const void*)big_zero_kernel);
+    case 0: return with((const void*)big_zero_kernel<GridAcc>);
     case 1: return with((const void*)big_bin_kernel);
     case 2: return with((const void*)big_p2g_sorted_kernel<GridAcc>);
     case 3: return with((const void*)big_grid_kernel<GridAcc>);
@@ -611,6 +671,7 @@ cudaError_t kernel_attributes(int which, F&& with) {
     case 8: return with((const void*)big_p2g_sorted_kernel<float4>);
     case 9: return with((const void*)big_grid_kernel<float4>);
     case 10: return with((const void*)big_g2p_kernel<float4>);
+    case 11: return with((const void*)big_rebuild_kernel);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -624,7 +685,7 @@ const char* unidom_cuda_error_string(int err) { return cudaGetErrorString((cudaE
 // What the card makes of K3's kernel `which` (0 the zero and count launch,
 // 1 the bins' scan, 2 P2G with a gradient, 3 its grid ops, 4 its G2P, 5 G2P's
 // adjoint, 6 the grid ops' adjoint, 7 the particle adjoint, 8 a rollout's
-// P2G, 9 its grid ops, 10 its G2P): out = registers per thread, local
+// P2G, 9 its grid ops, 10 its G2P, 11 K3-bwd's rebuild of a recorded grid): out = registers per thread, local
 // memory per thread (bytes), static
 // shared memory (bytes), threads per block and blocks per SM (the
 // occupancy API). Returns a cudaError_t.
@@ -649,21 +710,26 @@ int mpm_big_step_kernel_info(int which, int device, int* out) {
 // summing P2G in gacc (B, cells, 4 doubles), unless hist is null (a
 // rollout: P2G sums in fsum (B, cells, 4 floats); fsum and mark must be 0
 // on entry and are 0 again on exit). what 1:
-// K3-seg alone, segment `segment` from hist into seg_out (B, L, N_COMP, P).
+// K3-seg alone, segment `segment` from hist into seg_out (B, L, N_COMP, P),
+// its L grids recorded in record's slots 0 .. L - 1, P2G summed in fsum
+// (0 on entry and on exit with mark, as in a rollout).
 // what 2: K3-bwd from the history (with K3-seg into seg_out (B, K, N_COMP,
-// P) per segment when K > 1), the output cotangents bwd_in (dx, dv, dC, dF,
+// P), record and fsum per segment when K > 1; with K = 1 the recompute sums
+// in gacc), the output cotangents bwd_in (dx, dv, dC, dF,
 // dJ, dpos, drot) and into bwd_out (the cotangents of x, v, C, F, J, mu,
 // lamda, yield_stress, ground friction, frame, vw). what 3: the gradient's
-// P2G of carry `segment` of hist alone, into gacc and mark (the grid that
-// K3-bwd recomputes). grid (B, cells, 4) is scratch that needs no
-// clearing, and so is mark (B, cells) with a gradient; ps (B, N_COMP, P), rows (B, steps + 1, n_prim,
+// P2G of carry `segment` of hist alone, into gacc and mark (the grid of
+// K3-fwd with checkpoints). grid (B, cells, 4) is scratch that needs no
+// clearing, and so is mark (B, cells) where gacc is used; ps (B, N_COMP, P), rows (B, steps + 1, n_prim,
 // ROW), touched (B, list_cap) and n_touched (B) likewise; bin_ints
 // (ops/cuda/mpm_big_kernel.py bin_scratch: per env the bins' counters
 // n_keys, n_bin_list 1, bin_list bin_cap, key, rank and perm P each): in
 // every case its counters (bins, n_bin_list) must be 0 on entry and are 0
 // again on exit, and the rest needs no clearing; K3-bwd's scratch:
-// bwd_floats, per env 4 cells + 4 list_cap + N_COMP P + 7 MAX_PRIM, and
-// bwd_doubles, per env 4 cells + 3 P + N_EACC, and bwd_ints, one per env.
+// bwd_floats, per env 4 cells + N_COMP P + 7 MAX_PRIM, and
+// bwd_doubles, per env 4 cells + 3 P + N_EACC, and bwd_ints, one per env;
+// record (what 1 and 2), K slots (BigRecord: K B list_cap float4, K B
+// list_cap + K B + K B P ints), needs no clearing.
 // grid_blocks is the number of blocks per env of the grid-op launches.
 int mpm_big_step_launch(const float* x, const float* v, const float* C, const float* F,
                         const float* J, const float* mu, int mu_sb, int mu_sp, const float* lamda,
@@ -680,13 +746,15 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
                         float* hist, int K, int what, int segment, float* seg_out,
                         const float* const* bwd_in, float* const* bwd_out, float* bwd_floats,
                         double* bwd_doubles, int* bin_ints, int n_keys, int bin_cap,
-                        int* bwd_ints, int* n_launches) {
+                        int* bwd_ints, void* record, int* n_launches) {
   *n_launches = 0;
   const long cells = (long)rx * ry * rz;
   if (B < 1 || B > 65535 || P < 1 || n_prim < 0 || n_prim > MAX_PRIM || steps < 1 ||
       cells < 1 || cells > 0x7fffffffL || list_cap < 1 || list_cap > cells || grid_blocks < 1 ||
-      K < 1 || K > steps || what < 0 || what > 3 || (what > 0 && !hist) || (hist && !gacc) ||
-      (!hist && !fsum) ||
+      K < 1 || K > steps || what < 0 || what > 3 || (what > 0 && !hist) ||
+      (((what == 0 && hist) || what == 3 || (what == 2 && K == 1)) && !gacc) ||
+      (((what == 0 && !hist) || what == 1 || (what == 2 && K > 1)) && !fsum) ||
+      ((what == 1 || what == 2) && !record) ||
       !bin_ints || n_keys != (rx + 2) * (ry + 2) * (rz + 2) + 1 ||
       bin_cap != (P < n_keys ? P : n_keys))
     return (int)cudaErrorInvalidValue;
@@ -720,6 +788,20 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
   a.key = a.bin_list + (size_t)B * bin_cap;
   a.rank = a.key + (size_t)B * P;
   a.perm = a.rank + (size_t)B * P;
+  BigRecord rec;
+  rec.pre = (float4*)record;
+  rec.cells = (int*)(rec.pre + (size_t)K * B * list_cap);
+  rec.n = rec.cells + (size_t)K * B * list_cap;
+  rec.perm = rec.n + (size_t)K * B;
+  float4* pre = nullptr;  // the grid ops' record of momentum and mass, where one is kept
+  // the launches from here on read and write record slot j's touched list,
+  // count and permutation, and its momentum and mass as pre
+  auto use_slot = [&](int j) {
+    a.touched = rec.cells + (size_t)j * B * list_cap;
+    a.n_touched = rec.n + (size_t)j * B;
+    a.perm = rec.perm + (size_t)j * B * P;
+    pre = rec.pre + (size_t)j * B * list_cap;
+  };
 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -740,19 +822,27 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
     big_p2g_sorted_kernel<G><<<particles, NT, 0, s>>>(g, a, (write_F));         \
     UNIDOM_LAUNCHED();                                                          \
   } while (0)
-  // forward substep f of the working carry, in place, from its zeroed and
-  // counted stencils, P2G summed in G; the new carry to a.save where set,
-  // and with `next` its stencils zeroed and counted
+  // the head of forward substep f of the working carry, from its zeroed and
+  // counted stencils: P2G summed in G (F after the return map back into the
+  // carry when write_F) and the grid ops, their input kept in pre where set
+#define UNIDOM_HEAD(G, f, write_F)                                              \
+  do {                                                                          \
+    UNIDOM_SORTED_P2G(G, write_F);                                              \
+    big_grid_kernel<G><<<cells_grid, NT, 0, s>>>(g, a, (f), pre);               \
+    UNIDOM_LAUNCHED();                                                          \
+  } while (0)
+  // forward substep f of the working carry, in place; the new carry to
+  // a.save where set, and with `next` its stencils zeroed and counted
 #define UNIDOM_SUBSTEP(G, f, next)                                              \
   do {                                                                          \
-    UNIDOM_SORTED_P2G(G, 1);                                                    \
-    big_grid_kernel<G><<<cells_grid, NT, 0, s>>>(g, a, (f), nullptr);           \
-    UNIDOM_LAUNCHED();                                                          \
+    UNIDOM_HEAD(G, f, 1);                                                       \
     big_g2p_kernel<G><<<particles, NT, 0, s>>>(g, a, (next));                   \
     UNIDOM_LAUNCHED();                                                          \
   } while (0)
   // K3-seg: segment sg's L carries from its checkpoint into out (env
-  // stride out_stride), the working carry ps; 4 L - 3 launches
+  // stride out_stride), the working carry ps, and each carry's P2G (summed
+  // in float into fsum, which with mark is 0 on entry and again on exit, as
+  // in a rollout) and grid ops recorded in record slot j: 4 L launches
 #define UNIDOM_SEGMENT(sg, out, out_stride)                                          \
   do {                                                                               \
     const int t0_ = (sg) * K, L_ = K < steps - t0_ ? K : steps - t0_;                \
@@ -760,15 +850,18 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
     a.src_stride = (size_t)n_ckpt * carry;                                           \
     a.save = (out);                                                                  \
     a.save_stride = (out_stride);                                                    \
-    big_zero_kernel<<<particles, NT, 0, s>>>(g, a, (GridAcc*)nullptr,       \
-                                                      L_ > 1);                       \
+    use_slot(0);                                                                     \
+    big_zero_kernel<float4><<<particles, NT, 0, s>>>(g, a, (GridAcc*)nullptr);       \
     UNIDOM_LAUNCHED();                                                               \
     a.src = nullptr;                                                                 \
     for (int j = 0; j + 1 < L_; ++j) {                                               \
+      use_slot(j);                                                                   \
       a.save = (out) + (size_t)(j + 1) * carry;                                      \
-      UNIDOM_SUBSTEP(GridAcc, t0_ + j, j + 2 < L_);                                  \
+      UNIDOM_SUBSTEP(float4, t0_ + j, 1);                                            \
     }                                                                                \
     a.save = nullptr;                                                                \
+    use_slot(L_ - 1);                                                                \
+    UNIDOM_HEAD(float4, t0_ + L_ - 1, 0);                                            \
   } while (0)
 
   if (what == 0 && !hist) {  // K3-fwd in a rollout
@@ -798,7 +891,7 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
     if (segment < 0 || segment >= n_ckpt) return (int)cudaErrorInvalidValue;
     a.src = hist + (size_t)segment * carry;
     a.src_stride = (size_t)n_ckpt * carry;
-    big_zero_kernel<<<particles, NT, 0, s>>>(g, a, (GridAcc*)nullptr, 1);
+    big_zero_kernel<GridAcc><<<particles, NT, 0, s>>>(g, a, (GridAcc*)nullptr);
     UNIDOM_LAUNCHED();
     a.src = nullptr;
     UNIDOM_SORTED_P2G(GridAcc, 0);
@@ -822,8 +915,7 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
   w.gmu = bwd_out[5]; w.gla = bwd_out[6]; w.gys = bwd_out[7]; w.ggf = bwd_out[8];
   w.gframe = bwd_out[9]; w.gvw = bwd_out[10];
   w.dgrid = (float4*)bwd_floats;
-  w.pre = w.dgrid + (size_t)B * cells;
-  w.cot = (float*)(w.pre + (size_t)B * list_cap);
+  w.cot = (float*)(w.dgrid + (size_t)B * cells);
   w.dpq = w.cot + (size_t)B * carry;
   w.dsum = (GridAcc*)bwd_doubles;
   w.pacc = bwd_doubles + (size_t)B * cells * 4;
@@ -832,7 +924,8 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
   big_bwd_pack_kernel<<<particles, NT, 0, s>>>(g, w);
   UNIDOM_LAUNCHED();
   float* ps_work = a.ps;
-  bool counted = false;  // whether the next reversed substep's stencils are zeroed and counted
+  if (K == 1) use_slot(0);  // the recompute's scratch
+  bool counted = false;  // with K = 1, whether the next reversed substep's stencils are zeroed and counted
   for (int sg = n_ckpt - 1; sg >= 0; --sg) {
     const int t0 = sg * K, L = K < steps - t0 ? K : steps - t0;
     const float* base;  // the segment's carries, env b's j-th at base + b * stride + j * carry
@@ -850,25 +943,26 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
     for (int t = t0 + L - 1; t >= t0; --t) {
       a.ps = (float*)(base + (size_t)(t - t0) * carry);  // read only from here on
       a.ps_stride = stride;
-      if (!counted) {
-        big_zero_kernel<<<particles, NT, 0, s>>>(g, a, w.dsum, 1);
+      const float* next = nullptr;  // K = 1: the next reversed substep's carry
+      if (K > 1) {  // the grid K3-seg recorded
+        use_slot(t - t0);
+        w.pre = pre;
+        big_rebuild_kernel<<<cells_grid, NT, 0, s>>>(g, a, w, t);
         UNIDOM_LAUNCHED();
+      } else {  // the grid recomputed from the history
+        if (!counted) {
+          big_zero_kernel<GridAcc><<<particles, NT, 0, s>>>(g, a, w.dsum);
+          UNIDOM_LAUNCHED();
+        }
+        w.pre = pre;
+        UNIDOM_HEAD(GridAcc, t, 0);
+        if (t > 0) next = hist + (size_t)(t - 1) * carry;
       }
-      UNIDOM_SORTED_P2G(GridAcc, 0);
-      big_grid_kernel<GridAcc><<<cells_grid, NT, 0, s>>>(g, a, t, w.pre);
-      UNIDOM_LAUNCHED();
       big_g2p_bwd_kernel<<<particles, NT, 0, s>>>(g, a, w);
       UNIDOM_LAUNCHED();
       big_grid_bwd_kernel<<<cells_grid, NT, 0, s>>>(g, a, w, t);
       UNIDOM_LAUNCHED();
-      // the next reversed substep's carry, where it is at hand already
-      const float* next = nullptr;
-      size_t next_stride = 0;
-      if (t > 0 && (K == 1 || t > t0)) {
-        next = K == 1 ? hist + (size_t)(t - 1) * carry : base + (size_t)(t - 1 - t0) * carry;
-        next_stride = stride;
-      }
-      big_particle_bwd_kernel<<<particles, NT, 0, s>>>(g, a, w, next, next_stride);
+      big_particle_bwd_kernel<<<particles, NT, 0, s>>>(g, a, w, next, stride);
       UNIDOM_LAUNCHED();
       counted = next != nullptr;
     }
@@ -879,6 +973,7 @@ int mpm_big_step_launch(const float* x, const float* v, const float* C, const fl
   UNIDOM_LAUNCHED();
 #undef UNIDOM_SEGMENT
 #undef UNIDOM_SUBSTEP
+#undef UNIDOM_HEAD
 #undef UNIDOM_SORTED_P2G
 #undef UNIDOM_LAUNCHED
   return (int)cudaSuccess;

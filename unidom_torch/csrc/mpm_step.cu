@@ -59,8 +59,10 @@
 //     through distributed shared memory (map_shared_rank) and runs the
 //     forward kinematics' adjoint, one thread per primitive, on threads that
 //     hold no particle where the block has such threads.
-//   - The standalone K2-seg: one thread block of 128 threads per env, the
-//     whole env's carry in its shared memory, the same device code.
+//   - K2-seg launched alone (ops/cuda/mpm_kernel.py mpm_step_seg) is the
+//     phase K2-bwd runs: the same clusters, threads and shared memory
+//     (launch_config), the same seg_recompute and last-carry head, each CTA
+//     recording its grids; it writes the segment's carries and stops.
 //   - The TPU kernel's dense tensor-product transfers (a TPU has no fast
 //     scatter) become a scatter: each particle's 27 stencil nodes, base =
 //     floor(x inv_dx - 0.5), offsets 0..2, the same nodes and weights as the
@@ -109,7 +111,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int SEG_NT = 128;       // the standalone K2-seg's threads per block
 constexpr int FWD_MAX_NT = 640;   // K2-fwd's most threads per CTA (its register budget)
 constexpr int BWD_MAX_NT = 320;   // K2-bwd's most threads per CTA (its register budget)
 constexpr int MAX_CLUSTER = 8;    // the portable cluster size
@@ -134,10 +135,8 @@ struct BwdArgs {
   int per_cta;                          // particles per CTA: ceil(P / cluster)
 };
 
-// the barrier between phases that cross particles
-struct BlockSync {
-  __device__ __forceinline__ void operator()() const { __syncthreads(); }
-};
+// the barrier between phases that cross particles: the cluster's, or with a
+// cluster of 1 the block's
 struct ClusterSync {
   int cs;
   __device__ __forceinline__ void operator()() const {
@@ -384,22 +383,40 @@ __device__ void seg_recompute(const Args& g, int b, int s, float* out, float* ps
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(SEG_NT) mpm_step_seg_kernel(Args g, int s, float* out) {
+// K2-seg alone, as K2-bwd runs it as the first phase of each segment: B
+// clusters of a.cluster CTAs under K2-bwd's launch (launch_config), CTA
+// `rank` holding particles p0 .. p0 + n - 1 at stride Pc in shared memory
+// laid out as K2-bwd's (the carry, room for its cotangent, the rows, the
+// touched list); segment s's L carries into a.seg (B, L, N_COMP, P) and
+// their grids into the CTA's K record slots, the last carry's head too.
+__global__ void __launch_bounds__(BWD_MAX_NT) mpm_step_seg_kernel(Args g, BwdArgs a, int s) {
   extern __shared__ float smem[];
   __shared__ Prim prims[MAX_PRIM];
   __shared__ int n_touched;
 
-  const int b = blockIdx.x, P = g.P;
+  const int cs = a.cluster, rank = cs > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int b = blockIdx.x / cs, P = g.P, steps = g.steps, K = g.K, Pc = a.per_cta;
+  const int p0 = rank * Pc, n = max(0, min(Pc, P - p0));  // this CTA's particles
+  const int t0 = s * K, L = min(K, steps - t0);
   const size_t cells = (size_t)g.rx * g.ry * g.rz;
-  float* ps = smem;
-  float* rows = ps + (size_t)N_COMP * P;
-  int* touched = (int*)(rows + (size_t)(g.steps + 1) * g.n_prim * ROW);
-  const int L = min(g.K, g.steps - s * g.K);
+  Args gl = g;
+  from_particle(gl, p0);
+  float* ps = smem;                                   // N_COMP * Pc
+  float* rows = ps + (size_t)2 * N_COMP * Pc;         // (steps + 1) * n_prim * ROW
+  int* touched = (int*)(rows + (size_t)(steps + 1) * g.n_prim * ROW);
+  float4* grid = g.grid + (size_t)b * cells;
+  int* mark = g.mark + (size_t)b * cells;
+  const size_t cta = (size_t)b * cs + rank;
+  const Record rec{a.rec_n + cta * K, a.rec_cells + cta * K * a.list_cap,
+                   a.pre + cta * K * a.list_cap};
+  const float gf = g.ground_friction[(size_t)b * g.gf_sb];
+  const ClusterSync sync{cs};
   if (threadIdx.x == 0) fk_rows(g, b, rows);
   __syncthreads();
-  seg_recompute(g, b, s, out + (size_t)b * L * N_COMP * P, ps, P, P, 0, rows, prims,
-                g.grid + (size_t)b * cells, g.mark + (size_t)b * cells, touched, &n_touched,
-                g.ground_friction[(size_t)b * g.gf_sb], BlockSync{});
+  seg_recompute(gl, b, s, a.seg + (size_t)b * L * N_COMP * P, ps, n, Pc, p0, rows, prims, grid,
+                mark, touched, &n_touched, gf, sync, rec, a.list_cap);
+  substep_head(ps, nullptr, n, Pc, t0 + L - 1, gl, b, rows, prims, grid, mark, touched,
+               &n_touched, gf, sync, rec.slot(L - 1, a.list_cap));
 }
 
 // ------------------------------------------------------------------ K2-bwd
@@ -673,7 +690,7 @@ int mpm_step_kernel_info(int bwd, int threads, long long smem, int cluster, int 
 // The forward's arguments, shared by the three entry points. hist (B,
 // ceil(steps / K), N_COMP, P) receives the carry every K substeps (K2-fwd)
 // or holds it (K2-seg, K2-bwd); K2-fwd writes no history when it is null.
-// K2-fwd and K2-bwd run B clusters of `cluster` CTAs of `threads` threads,
+// K2-fwd, K2-seg and K2-bwd run B clusters of `cluster` CTAs of `threads` threads,
 // each CTA holding per_cta particles and a touched list of list_cap slots in
 // smem bytes of dynamic shared memory (ops/cuda/mpm_kernel.py
 // fwd_launch_config and launch_config; it must equal smem_bytes(per_cta,
@@ -728,11 +745,26 @@ int mpm_step_launch(const float* x, const float* v, const float* C, const float*
       err = cudaLaunchKernelEx(&cfg, kernel, g, cluster, per_cta, sync);
     }
     if (err != cudaSuccess) return (int)err;
-  } else if (what == 1) {  // K2-seg alone
-    if (!hist || segment < 0 || segment * K >= steps) return (int)cudaErrorInvalidValue;
-    size_t smem0 = smem_bytes(P, cells, steps, n_prim, false);
-    if ((err = prepare_launch(mpm_step_seg_kernel, smem0, device)) != cudaSuccess) return (int)err;
-    mpm_step_seg_kernel<<<B, SEG_NT, smem0, (cudaStream_t)stream>>>(g, segment, seg_out);
+  } else if (what == 1) {  // K2-seg alone, launched as K2-bwd
+    if (!hist || !seg_out || !bwd_scratch || segment < 0 || segment * K >= steps ||
+        !cluster_launch_ok(P, cells, steps, n_prim, true, list_cap, cluster, threads, BWD_MAX_NT,
+                           per_cta, smem))
+      return (int)cudaErrorInvalidValue;
+    BwdArgs a = {};
+    a.seg = seg_out;
+    const size_t slots = (size_t)B * cluster * K;
+    a.pre = (float4*)bwd_scratch;
+    a.rec_cells = (int*)(a.pre + slots * list_cap);
+    a.rec_n = a.rec_cells + slots * list_cap;
+    a.list_cap = list_cap;
+    a.cluster = cluster;
+    a.per_cta = per_cta;
+    if ((err = prepare_launch(mpm_step_seg_kernel, (size_t)smem, device)) != cudaSuccess)
+      return (int)err;
+    cudaLaunchConfig_t cfg = cluster_config(B, cluster, threads, (size_t)smem,
+                                            (cudaStream_t)stream, &la);
+    if ((err = cudaLaunchKernelEx(&cfg, mpm_step_seg_kernel, g, a, segment)) != cudaSuccess)
+      return (int)err;
   } else {  // K2-bwd, with K2-seg as a phase of each segment when K > 1
     if (!hist || threads < n_prim || (K > 1 && !seg_out) ||
         !cluster_launch_ok(P, cells, steps, n_prim, true, list_cap, cluster, threads, BWD_MAX_NT,

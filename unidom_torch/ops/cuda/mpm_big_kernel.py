@@ -8,9 +8,10 @@ configurations that K2 (``mpm_kernel.py``, one block per env) does not take,
 such as pour_soup (7,694 particles, a 128x64x128 grid) and
 shape_elasto_plastic (23,940 particles), writing the carry every K substeps
 when a gradient is wanted; K3-seg (``seg_hist_call``, a segment's carries
-recomputed from its checkpoint) and K3-bwd (``bwd_step_call`` under the
-reverse scan ``_core_bwd``, the macro step's adjoint, with K3-seg as a
-phase of each segment when K > 1).
+recomputed from its checkpoint, each substep's grid recorded) and K3-bwd
+(``bwd_step_call`` under the reverse scan ``_core_bwd``, the macro step's
+adjoint, with K3-seg as a phase of each segment when K > 1: the reversed
+substep then rebuilds its grid from K3-seg's record and runs no P2G).
 
 ``mpm_big_step`` runs the plain PyTorch macro step
 (``MPMSimulator._step_plain``, differentiated by autograd) for CPU tensors.
@@ -25,25 +26,26 @@ Pallas kernel), ``mpm_big_step.bwd_launches`` those through K3-bwd,
 of ``mpm_big_step_seg``), ``mpm_big_step.cuda_launches`` the CUDA launches
 inside all of them (4 x steps + 2 per K3-fwd macro step). The kernels sort
 the particles by bin each substep and sum P2G's (and G2P's adjoint's)
-shares over a bin before their atomics: in float into the float4 grid in a
-rollout, in double with a gradient (see the source); ``p2g_sums`` runs the
-gradient's P2G alone on a carry of the history, the grid that K3-bwd
-recomputes.
+shares over a bin before their atomics: in float in a rollout and in K3-seg,
+in double in K3-fwd with checkpoints and K3-bwd's recompute at K = 1 (see
+the source); ``p2g_sums`` runs that double P2G alone on a carry of the
+history (``recorded_grids`` spreads K3-seg's record over the grid).
 
 The particle state crosses in the simulator's layout ((B, P, 3),
 (B, P, 3, 3), (B, P)); the kernels keep it per env in device memory as
 (B, 25, P), component-major, with a (B, cells) float4 grid and mark, a
 touched-cell list per env and the primitives' frames, all scratch from
 ``torch.empty``, but for what must start at 0: the sort's counters, and in a
-rollout P2G's float sums and the marks, which K3-fwd leaves at 0 and the
-simulator keeps for its next rollout; the history is (B, ceil(steps / K),
-25, P).
+rollout and K3-seg P2G's float sums and the marks, which they leave at 0 and
+the simulator keeps for its next call; the history is (B, ceil(steps / K),
+25, P), and K3-seg's record of a segment's grids K slots (``record_bytes``).
 """
 
 import ctypes
 import functools
 import math
 import weakref
+from typing import NamedTuple
 
 import torch
 
@@ -73,7 +75,7 @@ _FWD, _SEG, _BWD, _P2G = 0, 1, 2, 3
 # K3's kernels as mpm_big_step_kernel_info numbers them
 KERNELS = ("zero and count", "bins' scan", "P2G (gradient)", "grid ops (gradient)",
            "G2P (gradient)", "G2P adjoint", "grid ops adjoint", "particle adjoint",
-           "P2G (rollout)", "grid ops (rollout)", "G2P (rollout)")
+           "P2G (rollout)", "grid ops (rollout)", "G2P (rollout)", "rebuild (K3-bwd)")
 
 
 @functools.cache
@@ -82,7 +84,8 @@ def _lib():
     lib.mpm_big_step_launch.argtypes = (
         [_PTR] * 5 + [_PTR, _INT, _INT] * 3 + [_PTR, _INT] + [_PTR] * 4 + [_PTR] * 10
         + [_PTR] * 5 + [_INT, _INT] + [_INT] * 10 + [_FLOAT] * 8 + [_INT, _PTR]
-        + [_PTR, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR, _PTR]
+        + [_PTR, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR, _PTR,
+           _PTR]
     )
     lib.mpm_big_step_launch.restype = ctypes.c_int
     lib.mpm_big_step_kernel_info.argtypes = [_INT, _INT, _PTR]
@@ -113,8 +116,7 @@ def list_capacity(sim):
 
 
 # K3-bwd's scratch per env beside K3-fwd's, laid out as the source reads it:
-# the grid cotangent (4 floats per cell),
-# each touched cell before the grid ops (4 per list slot), the carry's
+# the grid cotangent (4 floats per cell), the carry's
 # cotangent (25 per particle) and the current frames' (7 per primitive of
 # MAX_PRIMITIVES); in double, G2P's adjoint's sums (4 per cell), the Lame
 # and yield cotangents (3 per particle) and the env's sums (N_EACC).
@@ -125,8 +127,61 @@ def bwd_scratch(sim):
     """(floats, doubles) of K3-bwd's scratch per env."""
     rx, ry, rz = sim.conf.res
     P = sim.n_particles
-    return (4 * rx * ry * rz + 4 * list_capacity(sim) + N_COMP * P + MAX_PRIMITIVES * 7,
+    return (4 * rx * ry * rz + N_COMP * P + MAX_PRIMITIVES * 7,
             4 * rx * ry * rz + 3 * P + N_EACC)
+
+
+def record_bytes(sim, K):
+    """Bytes per env of K3-seg's record of a segment's grids for K3-bwd:
+    K slots, one per substep of a segment (with K = 1, the slot K3-bwd's
+    recompute writes), each holding list_capacity touched cells (their
+    index and their momentum and mass before the grid ops, 20 B), their
+    count and the particles' bin order (4 B each). A slot is sized by the
+    list's capacity, not by the substep's touched count, which only the
+    card knows after P2G."""
+    return K * (20 * list_capacity(sim) + 4 + 4 * sim.n_particles)
+
+
+class Record(NamedTuple):
+    """Views of a record (``_record``'s buffer), slot j of env b at [j, b]:
+    each touched cell's momentum and mass before the grid ops (K, B, cap,
+    4), the touched cells (K, B, cap), their count (K, B) and the particles
+    in bin order (K, B, P)."""
+
+    pre: torch.Tensor
+    cells: torch.Tensor
+    n: torch.Tensor
+    perm: torch.Tensor
+
+
+def _record(sim, B, K, dev, dtype=torch.float32):
+    """The record's buffer of K slots for B envs, laid out as the source
+    reads it (the float4s first, then the ints), and its views."""
+    cap, P = list_capacity(sim), sim.n_particles
+    buf = torch.empty((K * B * (5 * cap + 1 + P),), dtype=dtype, device=dev)
+    n_pre = K * B * cap * 4
+    ints = buf[n_pre:].view(torch.int32)
+    n_cells = K * B * cap
+    return buf, Record(buf[:n_pre].view(K, B, cap, 4), ints[:n_cells].view(K, B, cap),
+                       ints[n_cells:n_cells + K * B].view(K, B),
+                       ints[n_cells + K * B:n_cells + K * B * (1 + P)].view(K, B, P))
+
+
+def recorded_grids(sim, rec, L):
+    """Slots 0 .. L - 1 of ``rec`` (a Record) spread over the grid: (the
+    momentum and mass before the grid ops, (L, B, cells, 4), 0 off the
+    touched cells; the touched cells, (L, B, cells) bool)."""
+    K, B, cap = rec.cells.shape
+    cells = math.prod(sim.conf.res)
+    grids = torch.zeros((L, B, cells, 4), dtype=rec.pre.dtype, device=rec.pre.device)
+    marks = torch.zeros((L, B, cells), dtype=torch.bool, device=rec.pre.device)
+    for j in range(L):
+        for b in range(B):
+            n = int(rec.n[j, b])
+            idx = rec.cells[j, b, :n].long()
+            grids[j, b, idx] = rec.pre[j, b, :n]
+            marks[j, b, idx] = True
+    return grids, marks
 
 
 def bin_scratch(sim):
@@ -142,6 +197,13 @@ def bin_scratch(sim):
     return n_keys + 1 + bin_cap + 3 * P, n_keys, bin_cap
 
 
+def kept_scratch_bytes(sim):
+    """Bytes per env of the scratch a simulator keeps zeroed between calls
+    (``_rollout_scratch``): P2G's float sums (16 B per cell), the marks (4 B
+    per cell) and the sort's ints (``bin_scratch``)."""
+    return 20 * math.prod(sim.conf.res) + 4 * bin_scratch(sim)[0]
+
+
 def scratch_bytes(sim, B, ckpt_stride=None):
     """Device memory of one K3-fwd macro step at ``B`` envs: the outputs
     and the kernel's scratch (the float4 grid and marks, carry, touched
@@ -149,7 +211,10 @@ def scratch_bytes(sim, B, ckpt_stride=None):
     per cell); with ``ckpt_stride`` K, instead what a gradient adds: P2G's
     sums in double (32 B per cell), the history of a
     checkpoint every K substeps, the output and input cotangents, K3-bwd's
-    scratch and, for K > 1, a segment of K carries."""
+    scratch, K3-seg's record of K substeps' grids (``record_bytes``) and, for
+    K > 1, a segment of K carries and the scratch that K3-seg sums P2G in
+    (``kept_scratch_bytes``): kept from one call to the next, it is still
+    held while K3-fwd with checkpoints holds its own sums, marks and sort."""
     conf = sim.conf
     rx, ry, rz = conf.res
     P, n_prim = sim.n_particles, len(sim.sdf_names)
@@ -161,8 +226,9 @@ def scratch_bytes(sim, B, ckpt_stride=None):
         K = ckpt_stride
         floats, doubles = bwd_scratch(sim)
         per_env += (4 * math.ceil(conf.steps / K) * N_COMP * P + 2 * 4 * N_COMP * P
-                    + 32 * rx * ry * rz + 4 * floats + 8 * doubles
-                    + 4 + (4 * K * N_COMP * P if K > 1 else 0))
+                    + 32 * rx * ry * rz + 4 * floats + 8 * doubles + 4
+                    + record_bytes(sim, K)
+                    + (4 * K * N_COMP * P + kept_scratch_bytes(sim) if K > 1 else 0))
     return B * per_env
 
 
@@ -171,7 +237,8 @@ def check_supported_big(sim, B=None, ckpt_stride=None):
     default the simulator's batch): the SDFs it evaluates, at most
     MAX_PRIMITIVES primitives, offsets within an env that fit 32 bits, and,
     on a GPU, the device memory (with the backward's at stride
-    ``ckpt_stride`` when one is given)."""
+    ``ckpt_stride`` when one is given, K3-seg's record included), before
+    anything is built or launched."""
     conf = sim.conf
     B = sim.batch_size if B is None else B
     cells = conf.res[0] * conf.res[1] * conf.res[2]
@@ -199,7 +266,8 @@ def check_supported_big(sim, B=None, ckpt_stride=None):
 # A rollout's scratch that must be 0 on entry (P2G's float sums, the marks
 # and the sort's counters), per simulator: K3-fwd leaves it at 0 again on
 # exit, so it is zeroed once and kept for the next rollout at the same batch
-# size on the same device and stream (one set per simulator).
+# size on the same device and stream (one set per simulator). K3-seg sums in
+# float too and leaves it at 0: it shares the set.
 _ROLLOUT_SCRATCH = weakref.WeakKeyDictionary()
 
 
@@ -228,17 +296,21 @@ def zeroed_parts(sim, scratch):
 
 
 def _call_big(sim, fields, frame, vw, *, what, K=1, hist=None, outs=(None,) * 7, segment=0,
-              seg_out=None, bwd_in=None, bwd_out=None, gacc=None, mark=None):
+              seg_out=None, bwd_in=None, bwd_out=None, gacc=None, mark=None, record=None):
     """One ``mpm_big_step_launch``: K3-fwd, K3-seg, K3-bwd or the
     gradient's P2G alone (``what``) on the forward's inputs ``fields`` (x,
     v, C, F, J, mu, lamda, yield_stress, friction; x..J may be None but for
     K3-fwd); with a history, ``gacc`` and ``mark``, when given, are the P2G
     sums' and marks' scratch. A rollout (no history) sums P2G in float in
-    the simulator's kept scratch and takes neither. Returns the CUDA
+    the simulator's kept scratch and takes neither, as K3-seg does (alone or
+    in K3-bwd at K > 1). K3-seg and K3-bwd record K substeps' grids in
+    ``record`` (``_record``'s buffer; a new one when None). Returns the CUDA
     launches."""
-    if hist is None and (gacc is not None or mark is not None):
-        raise ValueError("a K3-fwd rollout sums P2G in its own float scratch: it takes no gacc "
-                         "or mark")
+    # P2G summed in float in the simulator's kept scratch: a rollout, K3-seg
+    float_sums = hist is None or what == _SEG or (what == _BWD and K > 1)
+    if float_sums and (gacc is not None or mark is not None):
+        raise ValueError("a K3-fwd rollout or K3-seg sums P2G in the simulator's kept float "
+                         "scratch: it takes no gacc or mark")
     conf = sim.conf
     B, P, dev = frame.shape[0], sim.n_particles, frame.device
     n_prim, steps = frame.shape[1], conf.steps
@@ -253,7 +325,7 @@ def _call_big(sim, fields, frame, vw, *, what, K=1, hist=None, outs=(None,) * 7,
     per_env, n_keys, bin_cap = bin_scratch(sim)
     device, stream = _device_and_stream(dev)
     fsum = None
-    if hist is None:
+    if float_sums:
         fsum, mark, bin_ints = _rollout_scratch(sim, B, dev, (B, dev, stream))
     else:
         bin_ints = torch.zeros((B * per_env,), **i32)
@@ -271,6 +343,8 @@ def _call_big(sim, fields, frame, vw, *, what, K=1, hist=None, outs=(None,) * 7,
         bwd_floats = torch.empty((B * floats,), **f32)
         bwd_doubles = torch.empty((B * doubles,), dtype=torch.float64, device=dev)
         bwd_ints = torch.empty((B,), **i32)
+    if what in (_SEG, _BWD) and record is None:
+        record = _record(sim, B, K, dev)[0]
     grid_blocks = -(-min(cap, P) // THREADS)
     sdf_kinds = sum(SDF_KINDS[n] << i for i, n in enumerate(sim.sdf_names))
     n_launches = ctypes.c_int(0)
@@ -290,11 +364,11 @@ def _call_big(sim, fields, frame, vw, *, what, K=1, hist=None, outs=(None,) * 7,
         *(float(g) for g in conf.gravity), device, stream,
         _ptr(hist), K, what, segment, _ptr(seg_out), _pointer_array(bwd_in),
         _pointer_array(bwd_out), _ptr(bwd_floats), _ptr(bwd_doubles), _ptr(bin_ints), n_keys,
-        bin_cap, _ptr(bwd_ints), ctypes.byref(n_launches),
+        bin_cap, _ptr(bwd_ints), _ptr(record), ctypes.byref(n_launches),
     )
     mpm_big_step.cuda_launches += n_launches.value
     if err != 0:
-        if hist is None:  # the kept scratch may no longer be 0
+        if float_sums:  # the kept scratch may no longer be 0
             _ROLLOUT_SCRATCH.pop(sim, None)
         msg = lib.unidom_cuda_error_string(err).decode()
         name = ("K3-fwd", "K3-seg", "K3-bwd", "K3's P2G")[what]
@@ -342,24 +416,28 @@ def launch_big(sim, state, ckpt_stride=None, gacc=None, mark=None):
     return _rebuild(state, outs), hist
 
 
-def mpm_big_step_seg(sim, state, hist, ckpt_stride, segment):
+def mpm_big_step_seg(sim, state, hist, ckpt_stride, segment, with_record=False):
     """K3-seg alone: segment ``segment`` of the macro step from ``state``
     (the output of ``sim.prepare``) recomputed from its checkpoint in
-    ``hist`` (``launch_big(..., ckpt_stride)``'s). Returns its L input
-    carries, (B, L, 25, P)."""
+    ``hist`` (``launch_big(..., ckpt_stride)``'s), each of its L carries'
+    grid recorded as K3-bwd reads it. Returns its L input carries, (B, L,
+    25, P), and with ``with_record`` also the record (a Record of K slots,
+    the first L written)."""
     fields, frame, vw = _big_inputs(sim, state)
     K, steps = ckpt_stride, sim.conf.steps
+    B, dev = frame.shape[0], frame.device
     L = min(K, steps - segment * K)
-    out = torch.empty((frame.shape[0], L, N_COMP, sim.n_particles), dtype=torch.float32,
-                      device=frame.device)
-    _call_big(sim, fields, frame, vw, what=_SEG, K=K, hist=hist, segment=segment, seg_out=out)
+    out = torch.empty((B, L, N_COMP, sim.n_particles), dtype=torch.float32, device=dev)
+    buf, rec = _record(sim, B, K, dev)
+    _call_big(sim, fields, frame, vw, what=_SEG, K=K, hist=hist, segment=segment, seg_out=out,
+              record=buf)
     mpm_big_step.seg_launches += 1
-    return out
+    return (out, rec) if with_record else out
 
 
 def p2g_sums(sim, state, hist, ckpt_stride, slot):
-    """The gradient's P2G alone (the path of K3-fwd with checkpoints, K3-seg
-    and K3-bwd's recompute) on carry ``slot`` of ``hist`` (``launch_big(...,
+    """The gradient's P2G in double alone (the path of K3-fwd with
+    checkpoints and K3-bwd's recompute at K = 1) on carry ``slot`` of ``hist`` (``launch_big(...,
     ckpt_stride)``'s) from ``state``, the output of ``sim.prepare``. Returns
     (the sums of momentum and mass, (B, cells, 4) float64, and the marks of
     the touched cells, (B, cells) int32), 0 where no stencil reached."""

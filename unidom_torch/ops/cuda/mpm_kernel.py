@@ -424,16 +424,23 @@ def launch(sim, state, ckpt_stride=None):
 
 
 def mpm_step_seg(sim, state, hist, ckpt_stride, segment):
-    """K2-seg alone: segment ``segment`` of the macro step from ``state``
-    (the output of ``sim.prepare``) recomputed from its checkpoint in
-    ``hist`` (``launch(..., ckpt_stride)``'s). Returns its L input carries,
-    (B, L, 25, P)."""
+    """K2-seg alone, launched as K2-bwd runs it as a phase (``launch_config``'s
+    clusters, threads and shared memory, each CTA recording its grids, the
+    segment's last carry's included): segment ``segment`` of the macro step
+    from ``state`` (the output of ``sim.prepare``) recomputed from its
+    checkpoint in ``hist`` (``launch(..., ckpt_stride)``'s). Returns its L
+    input carries, (B, L, 25, P)."""
     fields, frame, vw = _inputs(sim, state)
-    K, steps = ckpt_stride, sim.conf.steps
+    K, steps, res = ckpt_stride, sim.conf.steps, sim.conf.res
+    B, P, dev = frame.shape[0], sim.n_particles, frame.device
     L = min(K, steps - segment * K)
-    out = torch.empty((frame.shape[0], L, N_COMP, sim.n_particles), dtype=torch.float32,
-                      device=frame.device)
-    _call(sim, fields, frame, vw, what=_SEG, K=K, hist=hist, segment=segment, seg_out=out)
+    cfg = launch_config(B, P, res[0] * res[1] * res[2], steps, frame.shape[1])
+    out = torch.empty((B, L, N_COMP, P), dtype=torch.float32, device=dev)
+    # per CTA K records of a substep's grid, as K2-bwd's scratch holds them
+    scratch = torch.empty((B * cfg.cluster * K * (5 * cfg.list_cap + 1),), dtype=torch.float32,
+                          device=dev)
+    _call(sim, fields, frame, vw, what=_SEG, K=K, hist=hist, segment=segment, seg_out=out,
+          scratch=scratch, cfg=cfg)
     mpm_step.seg_launches += 1
     return out
 
