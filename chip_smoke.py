@@ -86,6 +86,24 @@ at 32 envs and shape_elasto_plastic at 16 and its device time by launch, and
 the scratch it keeps for the next rollout back at 0; K3-bwd's on shape_elasto_plastic at 8 and 16,
 its device time by launch (no P2G or scan of its own at K > 1), and the
 grids K3-seg records against the checkpointing forward's P2G.
+``train_envs_phases`` trains every DaXBench env that no phase above trains,
+each phase checking its launches against its ep_len, stride rule and
+reset, and printing env-steps/s, peak memory and a [profile]:
+  - [soup-train]: pour_soup updates at 8, 32 and 64 envs (3 K3-fwd with
+    checkpoints, 3 K3-bwd and 15 K3-seg phases each), and one update's
+    policy gradient at 4 envs against the float32 and float64 plain steps;
+  - [water-train]: pour_water's ``train`` at 256 envs (2 iterations and an
+    eval of 16 envs: 206 K2-fwd, 6 K2-bwd, 30 K2-seg phases), an update,
+    and the policy-gradient gate at 8 envs;
+  - [rope-hard-train]: shape_rope_hard's host reset (10 pushes, 300 K2-fwd)
+    and an update at 64 envs under the box's collision;
+  - [tshirt-train]: a fold_tshirt update at 64 envs through K1-bwd at 72 x 78;
+  - [unfold-train]: ``train`` of unfold_cloth1 and unfold_cloth3 at 1024
+    envs, their resets' folds (40 and 120 K1-fwd each) included;
+  - [para-train]: ``train_para`` of fold_cloth1_para at 1024 envs with its
+    10-point stiffness sweep of 64 envs: every launch's stiffness against
+    the iteration's draw or the sweep point, the sweep's rewards not all
+    equal, the cloth kernels' library loaded once.
 The counters show that each path launches its own kernels and no other.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
@@ -1273,8 +1291,9 @@ def mpm_action_checks(what, grads):
 def mpm_policy_grads(env, seed, checkpoint=False):
     """One update's per-env policy gradients (ep_len 1) from ``env``'s reset,
     noise from numpy ``seed``, through the kernels, the float32 and the
-    float64 plain step (scatter transfer; with ``checkpoint``, each simulator
-    call of the plain steps recomputed in the backward pass instead of kept);
+    float64 plain step (scatter transfer; with ``checkpoint``, each substep
+    of the plain steps recomputed in the backward pass instead of kept, as
+    ``checkpointed``: pour_soup's float64 substep holds ~1.9 GB per env);
     (B, n_params) float64 each."""
     import numpy as np
     import torch
@@ -1301,15 +1320,12 @@ def mpm_policy_grads(env, seed, checkpoint=False):
                 for i in range(B)]
         return torch.cat([torch.stack(g).double().reshape(B, -1) for g in zip(*rows)], 1)
 
-    import torch.utils.checkpoint
-
     env32, env64 = mpm_plain_env(env, torch.float32), mpm_plain_env(env, torch.float64)
     for e in (env32, env64):
         e.simulator.transfer_mode = "scatter"
         if checkpoint:
-            plain = e.simulator._step_plain
-            e.simulator.step_batch = lambda s, a, plain=plain: torch.utils.checkpoint.checkpoint(
-                plain, s, a, use_reentrant=False)
+            e.simulator = checkpointed(e.simulator)
+            e.simulator.step_batch = e.simulator._step_plain
     return (per_env(env, ts.policy, s0, eps), per_env(env32, ts.policy, s0, eps),
             per_env(env64, copy.deepcopy(ts.policy).double(), mpm_cast(s0, torch.float64),
                     eps.double()))
@@ -1338,7 +1354,6 @@ def mpm_grad_phases(dev):
     path), the ep_len-70 update with truncation, times, bounds and profile.
     Returns the kernels-line entries of K2-bwd and K2-seg and K2-fwd's
     training launches."""
-    import numpy as np
     import torch
 
     from unidom_torch import make_env
@@ -2308,6 +2323,30 @@ def no_stiffness(s, psim):
             checkpointed(psim)._step_plain)
 
 
+def counts():
+    """Every kernel's launch count since ``zero``."""
+    from unidom_torch.ops.cuda.cloth_kernel import cloth_robot_step
+    from unidom_torch.ops.cuda.mpm_big_kernel import mpm_big_step
+    from unidom_torch.ops.cuda.mpm_kernel import mpm_step
+
+    return {"K3-fwd": mpm_big_step.launches, "K3-bwd": mpm_big_step.bwd_launches,
+            "K3-seg": mpm_big_step.seg_launches, "K2-fwd": mpm_step.launches,
+            "K2-bwd": mpm_step.bwd_launches, "K2-seg": mpm_step.seg_launches,
+            "K1-fwd": cloth_robot_step.launches, "K1-bwd": cloth_robot_step.bwd_launches}
+
+
+def zero():
+    """Set every kernel's launch counts to 0."""
+    from unidom_torch.ops.cuda.cloth_kernel import cloth_robot_step
+    from unidom_torch.ops.cuda.mpm_big_kernel import mpm_big_step
+    from unidom_torch.ops.cuda.mpm_kernel import mpm_step
+
+    mpm_big_step.launches = mpm_big_step.bwd_launches = mpm_big_step.seg_launches = 0
+    mpm_big_step.cuda_launches = 0
+    mpm_step.launches = mpm_step.bwd_launches = mpm_step.seg_launches = 0
+    cloth_robot_step.launches = cloth_robot_step.bwd_launches = 0
+
+
 def big_grad_phases(dev):
     """The big-grid training path and the shape_rope family's: K2-bwd under
     collision on shape_rope and a bowl, K3-bwd and K3-seg on pour_soup,
@@ -2317,28 +2356,14 @@ def big_grad_phases(dev):
     and K3-bwd's, K3-seg's and K2-bwd's times beside their bounds. Returns
     the kernels-line entries of K3-seg and K3-bwd and K2-bwd's launches in
     the shape_rope iteration."""
-    import numpy as np
     import torch
 
     from unidom_torch import make_env
     from unidom_torch.algorithms.apg import build_apg, train
     from unidom_torch.ops.cuda import mpm_big_kernel as mbk
     from unidom_torch.ops.cuda import mpm_kernel as mk
-    from unidom_torch.ops.cuda.cloth_kernel import cloth_robot_step
     from unidom_torch.ops.cuda.mpm_big_kernel import mpm_big_step
     from unidom_torch.ops.cuda.mpm_kernel import mpm_step
-
-    def counts():
-        return {"K3-fwd": mpm_big_step.launches, "K3-bwd": mpm_big_step.bwd_launches,
-                "K3-seg": mpm_big_step.seg_launches, "K2-fwd": mpm_step.launches,
-                "K2-bwd": mpm_step.bwd_launches, "K2-seg": mpm_step.seg_launches,
-                "K1-fwd": cloth_robot_step.launches, "K1-bwd": cloth_robot_step.bwd_launches}
-
-    def zero():
-        mpm_big_step.launches = mpm_big_step.bwd_launches = mpm_big_step.seg_launches = 0
-        mpm_big_step.cuda_launches = 0
-        mpm_step.launches = mpm_step.bwd_launches = mpm_step.seg_launches = 0
-        cloth_robot_step.launches = cloth_robot_step.bwd_launches = 0
 
     # ---- 26. K2-bwd under collision: shape_rope at 64 envs, a bowl at 256
     t_phase = time.perf_counter()
@@ -3014,6 +3039,350 @@ def k3_design_phase(dev):
     return rollout, times
 
 
+# The DaXBench paths that train on the card only here (train_envs_phases):
+# pour_soup at runs/r5/bench_pour_soup.json's 8 envs and ep_len 3 (its
+# configuration, not its speed), then wider; pour_water at B_WATER; the
+# cloth envs at the main path's 1024 (fold_tshirt at its rollout's 64).
+SOUP_TRAIN_B = (8, 32, 64)
+B_SOUP_POLICY = 4
+B_WATER_POLICY = 8
+WATER_EVAL_ENVS = 16
+B_ROPE_HARD = 64
+B_TSHIRT_TRAIN = 64
+B_UNFOLD = 1024
+UNFOLD_EVAL_ENVS = 20
+B_PARA = 1024
+PARA_EVAL_ENVS = 64
+PARA_POINTS = 10
+ROBOT_STEPS = 40  # robot steps per cloth macro step
+
+
+def expected(**launches):
+    """A ``counts`` dict: the launches given (K1_fwd=... for "K1-fwd"), 0 elsewhere."""
+    out = {k: 0 for k in ("K3-fwd", "K3-bwd", "K3-seg", "K2-fwd", "K2-bwd", "K2-seg",
+                          "K1-fwd", "K1-bwd")}
+    out.update({k.replace("_", "-"): v for k, v in launches.items()})
+    return out
+
+
+def segments(env, B):
+    """K2-seg or K3-seg phases per backward call of ``env`` at B envs: one
+    per segment of the stride rule's K, none at K = 1."""
+    from unidom_torch.ops.cuda import mpm_kernel as mk
+
+    sim = env.simulator
+    K = mk.checkpoint_stride(B, sim.n_particles, sim.conf.steps)
+    return math.ceil(sim.conf.steps / K) if K > 1 else 0
+
+
+def check_history(tag, history):
+    """Fail unless every record of ``train`` or ``train_para`` has finite
+    metrics and a gradient."""
+    for rec in history:
+        if not all(math.isfinite(rec[k]) for k in ("train_reward", "grad_norm", "sps")) or \
+                not rec["grad_norm"] > 0:
+            fail(f"{tag}: iteration {rec['it']}: {rec}")
+
+
+def minimize_phase(tag, env, expect, reset_expect=None):
+    """The first state from ``build_apg``'s ``reset_batch`` (its launches
+    against ``reset_expect``, none by default), then two updates of ``env``
+    at ep_len EP_LEN: each one's launches against ``expect``, finite
+    metrics, a gradient, moved parameters; the second's env-steps/s, the
+    peak memory and a [profile] of a third. Returns (the reset's launches,
+    one update's, env-steps/s)."""
+    import torch
+
+    from unidom_torch.algorithms.apg import build_apg
+
+    init_ts, minimize, reset_batch, _ = build_apg(env, EP_LEN, device=env.device)
+    ts = init_ts(0)
+    zero()
+    first = reset_batch(torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    reset_counts = counts()
+    if reset_counts != (reset_expect or expected()):
+        fail(f"{tag}: the reset launched {reset_counts}, expected {reset_expect or expected()}")
+    params0 = [p.detach().clone() for p in ts.policy.parameters()]
+    mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    for _ in range(2):
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, m = minimize(ts, first)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        update = counts()
+        m = {k: v.item() for k, v in m.items()}
+        if update != expect:
+            fail(f"{tag}: one update launched {update}, expected {expect}")
+        if not all(math.isfinite(v) for v in m.values()) or not m["grad_norm"] > 0:
+            fail(f"{tag}: metrics {m}")
+    peak = torch.cuda.max_memory_allocated()
+    moved = max((p - q).abs().max().item() for p, q in zip(ts.policy.parameters(), params0))
+    if not moved > 0:
+        fail(f"{tag}: the updates left the parameters where they were")
+    sps = EP_LEN * env.batch_size / seconds[1]
+    log(f"[{tag}] reset launches {reset_counts}; per update {update}; metrics {m}; "
+        f"{[round(t, 4) for t in seconds]} s per update, {sps:.2f} env-steps/s (second update); "
+        f"peak memory {peak / 1e9:.3f} GB ({mem_before / 1e9:.3f} GB held before); parameters "
+        f"moved up to {moved:.3e}")
+    profile_device(f"minimize {tag}", lambda: minimize(ts, first), top=8)
+    return reset_counts, update, sps
+
+
+def train_phase(tag, name, B, expect, n_eval, **kwargs):
+    """``train`` of ``name`` at B envs, ep_len EP_LEN, 2 iterations (one eval
+    of ``n_eval`` envs, sampled and deterministic, at the first): the whole
+    call's launches against ``expect``, finite metrics and a gradient every
+    iteration, env-steps/s and the peak memory. Returns the launches and
+    the history."""
+    import torch
+
+    from unidom_torch.algorithms.apg import train
+
+    logdir = ROOT / "build" / f"chip_smoke_train_{name}"
+    shutil.rmtree(logdir, ignore_errors=True)
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, history = train(name, EP_LEN, B, max_it=1, eval_freq=2, num_eval_envs=n_eval,
+                       logdir=str(logdir), device="cuda", **kwargs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = counts()
+    check_history(tag, history)
+    log(f"[{tag}] train({name}, ep_len {EP_LEN}, {B} envs, 2 iterations, an eval of {n_eval} "
+        f"envs): launches {got} (expected {expect}); "
+        + "; ".join(json.dumps(rec) for rec in history)
+        + f"; {history[1]['sps']:.2f} training env-steps/s (second update); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; {seconds:.2f} s")
+    if got != expect:
+        fail(f"{tag}: train({name}) launched {got}")
+    shutil.rmtree(logdir, ignore_errors=True)
+    return got, history
+
+
+def train_envs_phases(dev):
+    """Training on the card of every DaXBench env that no phase above
+    trains, through the kernels that exist: pour_soup (K3), pour_water and
+    shape_rope_hard (K2 under the bowls' and the box's collision),
+    fold_tshirt (K1 at 72 x 78), unfold_cloth1 and unfold_cloth3 (their
+    folding resets through K1-fwd) and fold_cloth1_para's parameter-aware
+    trainer (a stiffness per env and iteration, and the eval's sweep). Each
+    phase checks its launches against what its ep_len, stride rule and reset
+    work out to, its loss and gradient norm finite, and prints its
+    env-steps/s, peak memory and a [profile]. Returns each path's launches
+    by kernel and the largest |kernel - plain| of pour_soup's and of
+    pour_water's policy gradients."""
+    import torch
+
+    from unidom_torch import make_env
+    from unidom_torch.algorithms import apg_para
+    from unidom_torch.ops.cuda import cloth_kernel
+    from unidom_torch.ops.cuda import mpm_big_kernel as mbk
+    from unidom_torch.ops.cuda import mpm_kernel as mk
+    from unidom_torch.ops.cuda._build import library_path
+    from unidom_torch.ops.metrics import chamfer
+
+    paths = {}  # path -> launch counts
+
+    # ---- [soup-train]: pour_soup updates through K3 with checkpoints, K3-seg, K3-bwd
+    t_phase = time.perf_counter()
+    for B in SOUP_TRAIN_B:
+        env = make_env("pour_soup", batch_size=B, aux_reward=True, device=dev)
+        sim = env.simulator
+        K = mk.checkpoint_stride(B, sim.n_particles, sim.conf.steps)
+        try:
+            mbk.check_supported_big(sim, B, K)
+        except NotImplementedError as refusal:
+            log(f"[soup-train] B={B}: check_supported_big refuses the update: {refusal}")
+            continue
+        log(f"[soup-train] pour_soup B={B}: {EP_LEN} simulator calls of {sim.conf.steps} "
+            f"substeps per update, stride K = {K}, K3 scratch "
+            f"{mbk.scratch_bytes(sim, B, K) / 1e9:.2f} GB")
+        _, paths[f"pour_soup_minimize_B{B}"], _ = minimize_phase(
+            f"soup-train B={B}", env, expected(K3_fwd=EP_LEN, K3_bwd=EP_LEN,
+                                               K3_seg=EP_LEN * segments(env, B)))
+        del env, sim
+        torch.cuda.empty_cache()
+    genv = make_env("pour_soup", batch_size=B_SOUP_POLICY, device=dev)
+    k, p, r = mpm_policy_grads(genv, 0, checkpoint=True)
+    soup_err = per_env_gate(f"soup-policy-grad B={B_SOUP_POLICY}", ["policy"], [k], [p], [r])
+    if (r.norm(dim=1) == 0).any():
+        fail("a float64 per-env policy gradient of pour_soup is 0")
+    del genv, k, p, r
+    torch.cuda.empty_cache()
+    log(f"[soup-train] {time.perf_counter() - t_phase:.2f} s")
+
+    # ---- [water-train]: pour_water's train through K2 under the bowls' collision
+    t_phase = time.perf_counter()
+    env = make_env("pour_water", batch_size=B_WATER, device=dev)
+    per_call = segments(env, B_WATER)
+    evals = 2 * env.max_steps
+    del env
+    paths["pour_water_train"], _ = train_phase(
+        "water-train", "pour_water", B_WATER,
+        expected(K2_fwd=evals + 2 * EP_LEN, K2_bwd=2 * EP_LEN, K2_seg=2 * EP_LEN * per_call),
+        WATER_EVAL_ENVS)
+    env = make_env("pour_water", batch_size=B_WATER, aux_reward=True, device=dev)
+    minimize_phase(f"water-train B={B_WATER}", env,
+                   expected(K2_fwd=EP_LEN, K2_bwd=EP_LEN, K2_seg=EP_LEN * per_call))
+    del env
+    genv = make_env("pour_water", batch_size=B_WATER_POLICY, device=dev)
+    k, p, r = mpm_policy_grads(genv, 0, checkpoint=True)
+    water_err = per_env_gate(f"water-policy-grad B={B_WATER_POLICY}", ["policy"], [k], [p], [r])
+    if (r.norm(dim=1) == 0).any():
+        fail("a float64 per-env policy gradient of pour_water is 0")
+    del genv, k, p, r
+    torch.cuda.empty_cache()
+    log(f"[water-train] {time.perf_counter() - t_phase:.2f} s")
+
+    # ---- [rope-hard-train]: shape_rope_hard's host reset (its pushes through
+    # K2-fwd) and one update through K2 under the box's collision
+    t_phase = time.perf_counter()
+    env = make_env("shape_rope_hard", batch_size=B_ROPE_HARD, aux_reward=True, device=dev)
+    pushes = (env.DO_RESET_PUSHES + env.HARD_RESET_PUSHES) * env.PUSH_SUBSTEPS
+    calls = EP_LEN * env.PUSH_SUBSTEPS
+    reset_counts, paths["shape_rope_hard_minimize"], _ = minimize_phase(
+        f"rope-hard-train B={B_ROPE_HARD}", env,
+        expected(K2_fwd=calls, K2_bwd=calls, K2_seg=calls * segments(env, B_ROPE_HARD)),
+        reset_expect=expected(K2_fwd=pushes))
+    paths["shape_rope_hard_reset"] = reset_counts
+    del env
+    torch.cuda.empty_cache()
+    log(f"[rope-hard-train] the reset's {pushes} K2-fwd calls: 10 pushes of "
+        f"{pushes // 10} sub-steps; {time.perf_counter() - t_phase:.2f} s")
+
+    # ---- [tshirt-train]: one fold_tshirt update through K1-bwd at 72 x 78
+    t_phase = time.perf_counter()
+    env = make_env("fold_tshirt", batch_size=B_TSHIRT_TRAIN, aux_reward=True, device=dev)
+    _, s0 = env.reset(torch.Generator().manual_seed(0))
+    x = env.packed_x(s0).requires_grad_()
+    (g,) = torch.autograd.grad(chamfer(x, env.goal).sum(), x)
+    nan_envs = int((~torch.isfinite(g)).flatten(1).any(1).sum())
+    log(f"[tshirt-train] the chamfer reward's gradient at the reset is non-finite in {nan_envs} "
+        f"of {B_TSHIRT_TRAIN} envs (float32 d^2 <= 0 beside a goal point; the first "
+        "normalize_grad zeroes such an env's simulator gradient, as JAX's does)")
+    per_update = EP_LEN * ROBOT_STEPS
+    _, paths["fold_tshirt_minimize"], _ = minimize_phase(
+        f"tshirt-train B={B_TSHIRT_TRAIN}", env, expected(K1_fwd=per_update, K1_bwd=per_update))
+    del env, s0, x, g
+    torch.cuda.empty_cache()
+    log(f"[tshirt-train] {time.perf_counter() - t_phase:.2f} s")
+
+    # ---- [unfold-train]: unfold_cloth1 and unfold_cloth3, their resets'
+    # folds through K1-fwd
+    t_phase = time.perf_counter()
+    for n in (1, 3):
+        name = f"unfold_cloth{n}"
+        folds = n * ROBOT_STEPS
+        evals = 2 * 15 * ROBOT_STEPS  # the sampled and the deterministic eval, 15 macro steps
+        # the eval env's reset, each iteration's, the eval, and two updates
+        paths[f"{name}_train"], _ = train_phase(
+            "unfold-train", name, B_UNFOLD,
+            expected(K1_fwd=folds + 2 * folds + evals + 2 * per_update, K1_bwd=2 * per_update),
+            UNFOLD_EVAL_ENVS)
+        torch.cuda.empty_cache()
+    env = make_env("unfold_cloth3", batch_size=B_UNFOLD, aux_reward=True, device=dev)
+    minimize_phase(f"unfold-train unfold_cloth3 B={B_UNFOLD}", env,
+                   expected(K1_fwd=per_update, K1_bwd=per_update),
+                   reset_expect=expected(K1_fwd=3 * ROBOT_STEPS))
+    del env
+    torch.cuda.empty_cache()
+    log(f"[unfold-train] {time.perf_counter() - t_phase:.2f} s")
+
+    # ---- [para-train]: train_para of fold_cloth1_para, a stiffness per env
+    # and iteration, the eval's sweep; each launch's stiffness recorded
+    t_phase = time.perf_counter()
+    logdir = ROOT / "build" / "chip_smoke_train_para"
+    shutil.rmtree(logdir, ignore_errors=True)
+    lib = library_path(cloth_kernel.SOURCE)
+    loads, built = cloth_kernel._lib.cache_info().misses, lib.stat().st_mtime_ns
+    draws, seen = [], []
+    launch_fwd, launch_bwd, randomize = (cloth_kernel._launch_fwd, cloth_kernel._launch_bwd,
+                                         apg_para.randomize_stiffness)
+
+    def record_fwd(sim, inputs, variant=None):
+        seen.append(("fwd", inputs[6].clone()))
+        return launch_fwd(sim, inputs, variant)
+
+    def record_bwd(sim, inputs, cotangents, variant=None):
+        seen.append(("bwd", inputs[6].clone()))
+        return launch_bwd(sim, inputs, cotangents, variant)
+
+    def record_draw(*args, **kwargs):
+        state = randomize(*args, **kwargs)
+        draws.append(state.stiffness.clone())
+        return state
+
+    cloth_kernel._launch_fwd, cloth_kernel._launch_bwd = record_fwd, record_bwd
+    apg_para.randomize_stiffness = record_draw
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        _, history = apg_para.train_para(
+            "fold_cloth1_para", EP_LEN, B_PARA, max_it=1, eval_freq=2,
+            num_eval_envs=PARA_EVAL_ENVS, n_eval_points=PARA_POINTS, logdir=str(logdir),
+            device="cuda")
+    finally:
+        cloth_kernel._launch_fwd, cloth_kernel._launch_bwd = launch_fwd, launch_bwd
+        apg_para.randomize_stiffness = randomize
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = counts()
+    sweep_launches = PARA_POINTS * 3 * ROBOT_STEPS
+    expect = expected(K1_fwd=sweep_launches + 2 * per_update, K1_bwd=2 * per_update)
+    check_history("para-train", history)
+    sweep = history[0]["eval_sweep"]
+    log(f"[para-train] train_para(fold_cloth1_para, ep_len {EP_LEN}, {B_PARA} envs, 2 "
+        f"iterations, a {PARA_POINTS}-point sweep of {PARA_EVAL_ENVS} envs): launches {got} "
+        f"(expected {expect}); " + "; ".join(json.dumps(rec) for rec in history)
+        + f"; {history[1]['sps']:.2f} training env-steps/s (second update); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; {seconds:.2f} s")
+    if got != expect:
+        fail(f"train_para launched {got}")
+    if len(set(sweep.values())) == 1:
+        fail(f"the eval sweep's rewards are all equal: {sweep}")
+    # what K1 received: each update's draw in every launch, each sweep point
+    # in every eval env, in order
+    if len(draws) != 2 or len(seen) != got["K1-fwd"] + got["K1-bwd"]:
+        fail(f"recorded {len(draws)} draws and {len(seen)} launches")
+    fwd = [t for kind, t in seen if kind == "fwd"]
+    bwd = [t for kind, t in seen if kind == "bwd"]
+    points = torch.tensor(list(sweep), dtype=torch.float32)
+    for i, t in enumerate(fwd[:sweep_launches]):
+        if not (t == points[i // (3 * ROBOT_STEPS)].to(t.device)).all():
+            fail(f"the sweep's launch {i} ran at stiffness {t.unique().tolist()}")
+    updates = fwd[sweep_launches:]
+    for it in range(2):
+        for t in (updates[it * per_update:(it + 1) * per_update]
+                  + bwd[it * per_update:(it + 1) * per_update]):
+            if not torch.equal(t, draws[it]):
+                fail(f"iteration {it}: K1 received a stiffness other than the draw")
+    if torch.equal(draws[0], draws[1]) or len(draws[0].unique()) < B_PARA // 2:
+        fail("the stiffness draws do not vary per env and iteration")
+    misses, mtime = cloth_kernel._lib.cache_info().misses, lib.stat().st_mtime_ns
+    log(f"[para-train] K1 received each iteration's draw (per env, in [{draws[0].min():.1f}, "
+        f"{draws[0].max():.1f}]) in all of its {per_update} K1-fwd and K1-bwd launches, and "
+        f"each sweep point in all {PARA_EVAL_ENVS} envs of its {3 * ROBOT_STEPS}; the kernel "
+        f"library {lib.name}: loaded {misses} time(s) in this process ({loads} before the "
+        f"phase), file unchanged: {mtime == built}; sweep {sweep}")
+    if misses != loads or mtime != built:
+        fail("the stiffness draws or the sweep rebuilt or reloaded the cloth kernels")
+    shutil.rmtree(logdir, ignore_errors=True)
+    paths["fold_cloth1_para_train"] = got
+    env = make_env("fold_cloth1_para", batch_size=B_PARA, aux_reward=True, device=dev)
+    minimize_phase(f"para-train B={B_PARA}", env, expected(K1_fwd=per_update, K1_bwd=per_update))
+    del env
+    torch.cuda.empty_cache()
+    log(f"[para-train] {time.perf_counter() - t_phase:.2f} s")
+    return paths, soup_err, water_err
+
+
 def main():
     import torch
 
@@ -3086,6 +3455,19 @@ def main():
     # ---- the MPM backward kernels' design (see k2_design_phase, k3_design_phase)
     k2_design_phase(dev)
     k3_design_phase(dev)
+    # ---- the other DaXBench envs' training (see train_envs_phases)
+    train_paths, soup_err, water_err = train_envs_phases(dev)
+
+    def by_path(kernel):
+        return {path: c[kernel] for path, c in train_paths.items() if c[kernel]}
+
+    for entry, kernel in ((mpm_entry, "K2-fwd"), (bwd_entry, "K2-bwd"), (seg_entry, "K2-seg"),
+                          (big_entry, "K3-fwd"), (big_seg_entry, "K3-seg"),
+                          (big_bwd_entry, "K3-bwd")):
+        entry["launches_by_path"].update(by_path(kernel))
+    bwd_entry["max_abs_err"] = max(bwd_entry["max_abs_err"], water_err)
+    big_bwd_entry["max_abs_err"] = max(big_bwd_entry["max_abs_err"], soup_err)
+    torch.cuda.empty_cache()
 
     t_phase = time.perf_counter()
     with torch.no_grad():
@@ -3470,7 +3852,7 @@ def main():
         "launches": train_launches["fwd"],
         "launches_by_path": {"run_eval": launches, "train": train_launches["fwd"],
                              "whip_rope_run_eval": whip_k1["fwd"],
-                             "fold_tshirt_run_eval": tshirt_launches},
+                             "fold_tshirt_run_eval": tshirt_launches, **by_path("K1-fwd")},
         "max_abs_err": max(errs_all, tshirt_fwd_err),
         "ms": times[B_MAIN]["kernel"],
         "plain_ms": times[B_MAIN]["plain"],
@@ -3484,7 +3866,7 @@ def main():
         "replaces": "unidom_tpu/ops/pallas/cloth_kernel.py:354",
         "launches": train_launches["bwd"],
         "launches_by_path": {"run_eval": eval_bwd_launches, "train": train_launches["bwd"],
-                             "whip_rope_run_eval": whip_k1["bwd"]},
+                             "whip_rope_run_eval": whip_k1["bwd"], **by_path("K1-bwd")},
         "max_abs_err": max(bwd_err, grad_err, tshirt_bwd_err),
         "ms": bwd_times[B_MAIN]["kernel"],
         "plain_ms": bwd_times[B_MAIN]["plain"],

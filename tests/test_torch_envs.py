@@ -109,12 +109,21 @@ def test_pack_unpack_match_jax(envs3):
 
 def test_random_fold_action_picks_two_cloth_particles(envs3):
     *_, tenv, tstate = envs3
-    actions = tenv.get_random_fold_action(tstate, torch.Generator().manual_seed(0))
+    actions = tenv.get_random_fold_action(tstate, np.random.RandomState(0))
     assert tuple(actions.shape) == (3, 6)
     px = tenv.packed_x(tstate)
     for b in range(3):
         for half in (actions[b, :3], actions[b, 3:]):
             assert bool((px[b] == half).all(-1).any())
+    # the indices are drawn st first, then ed, as JAX's from numpy's global state
+    rng = np.random.RandomState(0)
+    st, ed = rng.randint(0, tenv.n_particles, size=3), rng.randint(0, tenv.n_particles, size=3)
+    rows = np.arange(3)
+    np.testing.assert_array_equal(actions.numpy(), np.concatenate(
+        [px.numpy()[rows, st], px.numpy()[rows, ed]], -1))
+    given = tenv.get_random_fold_action(tstate, None, indices=(ed, st))
+    np.testing.assert_array_equal(given.numpy(), np.concatenate(
+        [px.numpy()[rows, ed], px.numpy()[rows, st]], -1))
 
 
 def _chamfer_inputs(B, Nx, Ny):

@@ -98,3 +98,67 @@ def test_macro_step_matches_jax(pair):
     assert rms_port <= V_RATIO * rms_jax + V_FLOOR, (rms_port, rms_jax)
     np.testing.assert_allclose(treward.numpy(), np.asarray(jreward), **TOL_REWARD)
     np.testing.assert_allclose(tobs.numpy(), np.asarray(jobs), **TOL_X)
+
+
+def test_macro_step_vjp_matches_jax(pair):
+    """The VJP of one step_diff (40 robot steps) with respect to the actions
+    and the state's x and v, from cotangents on the final x and v, against
+    ``jax.vjp`` of JAX's. The float32 gradient of a macro step carries the
+    forward's rounding chaos, so it is held as v is above: against the
+    port's plain step in float64, the port's float32 error (RMS over each
+    input's cotangent) may be at most V_RATIO times JAX's, plus V_FLOOR of
+    the reference's RMS.
+
+    A cotangent on the reward gives 0 on both sides in float32: the chamfer's
+    Gram expansion cancels to d^2 <= 0 for particles within ~2e-4 of a goal
+    point (a few dozen of the t-shirt's 3573), sqrt's backward there is 0/0
+    for the pairs that no min selects, and the first normalize_grad's
+    nan_to_num zeroes the env's whole gradient, in JAX as in the port."""
+    jenv, _, jstate, tenv, _, _ = pair
+    rng = np.random.default_rng(1)
+    px = np.asarray(jenv.packed_x(jstate))
+    picks = px[np.arange(B), rng.integers(0, px.shape[1], B)]
+    places = px[np.arange(B), rng.integers(0, px.shape[1], B)]
+    actions = np.concatenate([picks, places], 1).astype(np.float32)
+    cot_r = rng.standard_normal(B).astype(np.float32)
+    cot_x, cot_v = (rng.standard_normal(jstate.x.shape).astype(np.float32) for _ in range(2))
+
+    def jfn(a, x, v):
+        _, reward, _, info = jenv.step_diff(a, jstate._replace(x=x, v=v))
+        return reward, info["state"].x, info["state"].v
+
+    _, vjp = jax.vjp(jfn, jax.numpy.asarray(actions), jstate.x, jstate.v)
+    zero_r = np.zeros(B, np.float32)
+    jgrads = [np.asarray(g) for g in vjp(tuple(jax.numpy.asarray(c)
+                                               for c in (zero_r, cot_x, cot_v)))]
+    jreward_grads = [np.asarray(g) for g in vjp(tuple(jax.numpy.asarray(c) for c in (
+        cot_r, np.zeros_like(cot_x), np.zeros_like(cot_v))))]
+
+    def port_grads(env, dtype, cots):
+        s = _to_torch(jstate)
+        s = s.replace(**{f: getattr(s, f).to(dtype) for f in (
+            "x", "v", "primitive0", "primitive1", "action0", "action1", "stiffness", "mu")})
+        inputs = [torch.tensor(actions, dtype=dtype, requires_grad=True),
+                  s.x.requires_grad_(), s.v.requires_grad_()]
+        _, reward, _, info = env.step_diff(inputs[0], s.replace(x=inputs[1], v=inputs[2]))
+        outs = (reward, info["state"].x, info["state"].v)
+        loss = sum((o * torch.from_numpy(c).to(dtype)).sum() for o, c in zip(outs, cots))
+        return [g.numpy() for g in torch.autograd.grad(loss, inputs)]
+
+    env64 = copy.copy(tenv)
+    sim64 = env64.simulator = copy.copy(tenv.simulator)
+    sim64.rest_len, sim64.nbr_valid = sim64.rest_len.double(), sim64.nbr_valid.double()
+    env64.goal = tenv.goal.double()
+    cots = (zero_r, cot_x, cot_v)
+    tgrads, refs = port_grads(tenv, torch.float32, cots), port_grads(env64, torch.float64, cots)
+    for name, t, j, r in zip(("actions", "x", "v"), tgrads, jgrads, refs):
+        assert t.shape == j.shape and np.abs(r).max() > 0, name
+        rms_port = np.sqrt(np.mean((t - r) ** 2))
+        rms_jax = np.sqrt(np.mean((j - r) ** 2))
+        assert rms_port <= V_RATIO * rms_jax + V_FLOOR * np.sqrt(np.mean(r ** 2)), \
+            (name, rms_port, rms_jax)
+    treward_grads = port_grads(tenv, torch.float32, (cot_r, np.zeros_like(cot_x),
+                                                      np.zeros_like(cot_v)))
+    for t, j in zip(treward_grads, jreward_grads):
+        np.testing.assert_array_equal(t, j)
+        assert not t.any()

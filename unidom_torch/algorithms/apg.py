@@ -273,12 +273,16 @@ def train(
     eval_env = env_functions[env_name](batch_size=num_eval_envs, seed=seed + 666,
                                        device=device, **env_kwargs)
     device = env.device
+    if hasattr(env, "rng"):
+        # JAX's resets draw on the host from numpy's global state (the
+        # shape_rope family's pushes, the unfold envs' folds), which each
+        # env's constructor reseeds: the eval env's last. Both envs share the
+        # eval env's stream, drawn in JAX's order: the training env's first
+        # reset (host_reset envs only), the eval env's, then one per
+        # iteration. So a fixed reset (cloth) repeats its noise but draws new
+        # folds every iteration, as JAX's does.
+        env.rng = eval_env.rng
     if env.reset_mode == "host_reset":
-        # JAX's host resets draw their pushes from numpy's global state, which
-        # each env's constructor reseeds: the eval env's, seed + 666, last.
-        # Both envs share that one stream, drawn in JAX's order: the training
-        # env's first reset, the eval env's, then one per iteration.
-        env.rng = eval_env.rng = np.random.RandomState(seed + 666)
         env.reset()
     _, eval_first_state = eval_env.reset(torch.Generator().manual_seed(seed + 666))
 

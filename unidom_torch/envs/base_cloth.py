@@ -4,7 +4,8 @@ Counterpart of ``unidom_tpu/envs/base_cloth.py``. A 6-DoF macro action
 (pick xyz, place xyz) expands into 40 gripper sub-actions (3 down, 10 up,
 20 move, 7 release), each driving one robot step of the simulator; the
 reward is ``e^(-10 * chamfer(x, goal)) * 0.99^t``, with an optional
-contact-distance term.
+contact-distance term. With ``param_obs`` (the para envs) the observation
+ends in each env's stiffness, normalised to ``eval_min_max_stiff``.
 """
 
 import math
@@ -26,16 +27,19 @@ class ClothEnv:
     reset_mode = "reset"  # the trainer draws first states with ``reset``
 
     def __init__(self, conf: ClothConf, batch_size: int, max_steps: int,
-                 aux_reward: bool = False, device="cuda"):
+                 aux_reward: bool = False, param_obs: bool = False,
+                 eval_min_max_stiff=(10.0, 1800.0), device="cuda"):
         self.device = torch.device(device)
         self.simulator = ClothSimulator(conf, batch_size, self.create_cloth_mask(conf), device)
         self.conf = conf
         self.aux_reward = aux_reward
+        self.param_obs = param_obs
+        self.eval_min_max_stiff = tuple(eval_min_max_stiff)
         self.max_steps = max_steps
         self.batch_size = batch_size
         self.action_size = 6
         self.n_particles = self.simulator.n_particles
-        self.observation_size = self.n_particles * 3 + 8
+        self.observation_size = self.n_particles * 3 + 8 + (1 if param_obs else 0)
         self.goal = self._load_goal(conf.goal_path)
         self._init_state = self.simulator.reset()
 
@@ -59,11 +63,15 @@ class ClothEnv:
 
     def get_obs(self, state: ClothState):
         """Particle positions (mask cells in row-major bbox order, xyz
-        innermost), then both gripper states: (B, 3P + 8)."""
+        innermost), then both gripper states: (B, 3P + 8); with
+        ``param_obs``, then the stiffness normalised to
+        ``eval_min_max_stiff``: (B, 3P + 9)."""
         B = state.x.shape[0]
-        return torch.cat(
-            [self.packed_x(state).reshape(B, -1), state.primitive0, state.primitive1], dim=-1
-        )
+        parts = [self.packed_x(state).reshape(B, -1), state.primitive0, state.primitive1]
+        if self.param_obs:
+            lo, hi = self.eval_min_max_stiff
+            parts.append(((state.stiffness - lo) / (hi - lo))[:, None])
+        return torch.cat(parts, dim=-1)
 
     # -------------------------------------------------------------- #
     # macro-action expansion
@@ -157,12 +165,16 @@ class ClothEnv:
             generator = torch.Generator().manual_seed(self.conf.seed)
         return self.reset_from_shift(torch.randn(2, generator=generator) * 0.05)
 
-    def get_random_fold_action(self, state: ClothState, generator: torch.Generator):
+    def get_random_fold_action(self, state: ClothState, rng: np.random.RandomState,
+                               indices=None):
         """Random pick/place pair: two particles of each env's current cloth,
-        drawn from ``generator`` (on the state's device)."""
+        their indices (st, ed) drawn from numpy ``rng`` on the host, st first,
+        as JAX draws them from numpy's global state. ``indices`` (st, ed),
+        each (B,), replaces the draw."""
         x = self.packed_x(state)
         B, P, _ = x.shape
-        st = torch.randint(0, P, (B,), generator=generator, device=x.device)
-        ed = torch.randint(0, P, (B,), generator=generator, device=x.device)
+        if indices is None:
+            indices = (rng.randint(0, P, size=(B,)), rng.randint(0, P, size=(B,)))
+        st, ed = (torch.as_tensor(np.asarray(i), device=x.device) for i in indices)
         rows = torch.arange(B, device=x.device)
         return torch.cat([x[rows, st], x[rows, ed]], dim=-1)

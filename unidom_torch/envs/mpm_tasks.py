@@ -250,6 +250,8 @@ class ShapeRopeEnv(MPMEnv):
 class ShapeRopeHardEnv(ShapeRopeEnv):
     """shape_rope with 8 more random pushes at reset."""
 
+    HARD_RESET_PUSHES = 8
+
     def __init__(self, batch_size, seed=1, max_steps=20, conf=None, aux_reward=False,
                  device="cuda"):
         conf = conf or dataclasses.replace(ShapeRopeConf, task="shape_rope_hard",
@@ -258,7 +260,7 @@ class ShapeRopeHardEnv(ShapeRopeEnv):
 
     def reset(self, generator=None):
         _, state = super().reset(generator)
-        state = self.random_push(state, step=8)
+        state = self.random_push(state, step=self.HARD_RESET_PUSHES)
         return self.get_obs(state), state
 
 
