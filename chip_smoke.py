@@ -10,8 +10,9 @@ envs) through them:
   - APG training (``train`` and ``build_apg``/``minimize``, episode length 3,
     120 forward and 120 backward launches per update), with the policy
     gradient of one update held against the plain step's in float32 and
-    float64 (on the tiny cloth of the CPU tests and at full width), the
-    training env-steps/s and peak memory, and the backward kernel's times.
+    float64 (on the tiny cloth of the CPU tests and at full width, 10
+    substeps per robot step), the training env-steps/s and peak memory,
+    and the backward kernel's times.
 Both kernels are also held against the plain step on a cloth of more cells
 than a block has threads, at the grid's corner (``BORDER_HW``), and on
 fold_tshirt's 72 x 78 cloth (N = 180), whose rollout then runs through
@@ -104,6 +105,28 @@ reset, and printing env-steps/s, peak memory and a [profile]:
     10-point stiffness sweep of 64 envs: every launch's stiffness against
     the iteration's draw or the sweep point, the sweep's rewards not all
     equal, the cloth kernels' library loaded once.
+``plb_phases`` drives PlasticineLab's seven sphere scenes
+(``envs/plb_tasks.py``: von-Mises bodies, one to three spheres, a 64^3 grid,
+40 substeps):
+  - [plb-sphere-k2]: plb_move cut to a 32^3 grid (K2 takes it) at 256 envs,
+    K2-fwd (the rollout's and, at K = 7, the checkpointing one) against the
+    float32 and float64 plain steps with the witness,
+    K2-bwd at K = 1 and 7 against the plain VJPs, the sphere's size
+    cotangent non-zero and gated;
+  - [plb-parity]: one K3-fwd macro step of each scene at the solver's 32
+    envs (the rollout's and, at K = 7, the checkpointing one) under the
+    per-env median gate with the witness, and K3-bwd's VJP of plb_move and
+    plb_triplemove (three spheres) at K = 1 and 7, every input cotangent
+    gated;
+  - [plb-solve]: the slice's main path, ``TrajectorySolver`` on plb_move at
+    32 envs, horizon 10, 4 iterations (10 K3-fwd with checkpoints, 10 K3-bwd
+    and 60 K3-seg phases each), the mean total reward improving, the first
+    iteration's action gradient over its first 2 macro steps (all 32 envs,
+    K = 7) against the float32 and float64 plain steps, K3's times beside
+    the plain step and the bounds;
+  - [plb-rollout]: each scene's rollout, 10 macro steps at 32 envs: env-steps/s
+    and K3-fwd's time per launch beside the bound (and plb_move's plain
+    step).
 The counters show that each path launches its own kernels and no other.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
@@ -187,8 +210,10 @@ PARITY_DRAWS = 5
 #   - on the tiny cloth of the CPU tests (N=20, 10 substeps, gripper radius
 #     0.08), where the gradient is well conditioned, held to the gate above
 #     (B_GRAD envs);
-#   - at full width (N=80, 50 substeps), B_GRAD_FULL envs for each noise
-#     seed of FULL_SEEDS. There, over 2000 substeps of lifting and dragging
+#   - at full width (N=80) cut in depth to FULL_SUBSTEPS substeps per robot
+#     step (the env's 50 until the PlasticineLab phases needed the time),
+#     B_GRAD_FULL envs for each noise seed of FULL_SEEDS. There, over a
+#     macro step's 40 robot steps of lifting and dragging
 #     cloth, the float32 plain step's per-env policy gradient is itself 10%
 #     to 970% off the float64 one (median 44% over the 9 of 32 envs holding
 #     cloth, on an H100), so one env says little. Pooled over the seeds'
@@ -198,12 +223,13 @@ PARITY_DRAWS = 5
 #     scores. A zero, sign-flipped or 2x-scaled gradient is off by about 1
 #     or more in every env and fails; a smaller scale error may pass, and
 #     the backward kernel's scale is held at the main path's shapes by the
-#     one-step gate above. The float64 plain step holds ~40 GB. One noise
-#     seed (9 envs holding cloth on the H100) keeps the gate and takes ~145
-#     s of the script's 1200; a second seed's 9 more envs would take as much.
+#     one-step gate above. At 50 substeps the float64 plain step held ~40
+#     GB and one noise seed (9 envs holding cloth on the H100) took ~145 s
+#     of the script's 1200; a second seed's 9 more envs would take as much.
 B_GRAD = 8
 B_GRAD_FULL = 32
 FULL_SEEDS = (2,)
+FULL_SUBSTEPS = 10
 MIN_HOLDING = 9
 TINY = dict(N=20, n_substeps=10, gripper_radius=0.08)
 # Both kernels, one robot step, on a cloth in the corner of the 80x80 grid:
@@ -1172,7 +1198,7 @@ def mpm_phases(dev):
                     if which == "kernel":
                         r[which] = cuda_ms(lambda: mpm_step(wenv.simulator, ws, wa), reps=20)
                     elif B == B_MAIN:
-                        r[which] = cuda_ms(lambda: sim._step_plain(ws, wa), reps=1, warmup=1)
+                        r[which] = cuda_ms(lambda: sim._step_plain(ws, wa), reps=1, warmup=0)
                 rounds.append(r)
         times[B] = {k: sum(r[k] for r in rounds) / len(rounds) for k in rounds[0]}
         plain_txt = (f"plain {times[B]['plain']:.4f} ms, speedup "
@@ -1270,6 +1296,16 @@ def mpm_vjp_cot(out, seed=0):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(MPM_COT_SCALE * rng.standard_normal(tuple(t.shape)).astype(np.float32))
             .to(t.device) for t in mpm_outputs(out)]
+
+
+def bwd_cots(out):
+    """``mpm_vjp_cot`` of a macro step's output in the layout of the
+    kernels' backward (the primitives' rows stacked)."""
+    import torch
+
+    cot = mpm_vjp_cot(out)
+    return [c.contiguous() for c in cot[:5]] + [torch.stack(cot[5::2], 1).contiguous(),
+                                                 torch.stack(cot[6::2], 1).contiguous()]
 
 
 def plain_mpm_sim(sim, transfer="scatter"):
@@ -1465,7 +1501,7 @@ def mpm_grad_phases(dev):
                 s = sim._substep(f, s)
             return s
 
-        seg_plain_ms = cuda_ms(plain_segment, reps=1, warmup=1)
+        seg_plain_ms = cuda_ms(plain_segment, reps=1, warmup=0)
         seg_cells, seg_bottom = mpm_work(sim, prepared.x, prepared.x)
         seg_flops, seg_rec = seg_work(sim, B_MAIN, seg.shape[1], seg_cells, seg_bottom, perm=False)
         seg_bound = bound(nbytes([hist[:, 0], seg]) + nbytes(mk.pack_primitives(prepared))
@@ -1631,8 +1667,7 @@ def mpm_grad_phases(dev):
         with torch.no_grad():
             fields, frame, vw = mk._inputs(wsim, ws)
             wout, hist = mk.launch(wsim, ws, K)
-            wcot = [c.contiguous() for c in mpm_vjp_cot(wout)]
-            wcot[5], wcot[6] = (torch.stack([t], 1).contiguous() for t in wcot[5:])
+            wcot = bwd_cots(wout)
             bwd_times[B] = cuda_ms(lambda: mk._backward(wsim, fields, frame, vw, hist, K, wcot),
                                    reps=5)
             if B == B_MAIN:  # the exact history: no K2-seg phases
@@ -1653,7 +1688,7 @@ def mpm_grad_phases(dev):
         torch.cuda.empty_cache()
     with torch.enable_grad():
         plain_ms = cuda_ms(lambda: mpm_vjp(psim._step_plain, hs, action[:B_MPM_GRAD], head(cot)),
-                           reps=1, warmup=1)
+                           reps=1, warmup=0)
     log(f"[time] the plain VJP (forward and backward, scatter transfer) at B={B_MPM_GRAD}: "
         f"{plain_ms:.2f} ms; phase 21 in {time.perf_counter() - t_phase:.2f} s")
 
@@ -1717,12 +1752,14 @@ ELASTO_PUSH = (0.38, 0.0, 0.5, 0.44, 0.0, 0.5)
 # unidom_torch/csrc/mpm_device.cuh's grid_op as FLOP_MPM_CELL above: mass
 # normalisation, gravity and position 12; per primitive the inverse
 # quaternion 13, the offset 3, two rotations 60 and a third for the normal
-# 30, the SDF with its gradient (box 28, container 35), influence 2, the
-# normal's norm 10, the collider's velocity 12, the normal component 5, the
-# tangent 6, its norm 8, friction 2 and the blend 21: 200 for a box, 207 for
-# a bowl. K3-fwd's particle work is K2-fwd's (FLOP_MPM_PARTICLE).
+# 30, the SDF with its gradient (box 28, container 35, sphere 11: the
+# squared norm 5, the epsilon, the root, 3 divisions, the radius), influence
+# 2, the normal's norm 10, the collider's velocity 12, the normal component
+# 5, the tangent 6, its norm 8, friction 2 and the blend 21: 200 for a box,
+# 207 for a bowl, 183 for a sphere. K3-fwd's particle work is K2-fwd's
+# (FLOP_MPM_PARTICLE).
 FLOP_MPM_GRID = 12
-FLOP_MPM_COLLIDE = {"box": 200, "container": 207}
+FLOP_MPM_COLLIDE = {"box": 200, "container": 207, "sphere": 183}
 
 
 def big_cell_flops(sim):
@@ -1799,14 +1836,18 @@ def save_mpm_state(path, state, action, envs):
     np.savez(path, **arrays)
 
 
-def big_parity(what, sim, state, action, n_plain, per_env=False):
-    """One macro step through ``sim.step_batch`` (K3-fwd on the card), held
-    on its first ``n_plain`` envs against the float32 and float64 plain steps
-    by ``mpm_gate`` (``per_env`` as there), with the mu = lamda = 0 witness
-    held to the same statistic. Returns (the largest |kernel - plain|, the
-    kernel's output)."""
+def big_parity(what, sim, state, action, n_plain, per_env=False, kernel="K3-fwd", ckpt=None):
+    """One macro step through ``sim.step_batch`` (``kernel`` on the card,
+    K3-fwd or K2-fwd), held on its first ``n_plain`` envs against the
+    float32 and float64 plain steps by ``mpm_gate`` (``per_env`` as there),
+    with the mu = lamda = 0 witness held to the same statistic. With
+    ``ckpt`` K, the kernel's forward with a checkpoint every K substeps (the
+    one a gradient runs) is held too. Returns (the largest |kernel - plain|,
+    the kernel's output)."""
     import torch
 
+    from unidom_torch.ops.cuda import mpm_big_kernel as mbk
+    from unidom_torch.ops.cuda import mpm_kernel as mk
     from unidom_torch.ops.cuda.mpm_big_kernel import mpm_big_step
     from unidom_torch.ops.cuda.mpm_kernel import mpm_step
 
@@ -1814,16 +1855,23 @@ def big_parity(what, sim, state, action, n_plain, per_env=False):
     with torch.no_grad():
         out_k = sim.step_batch(state, action)
         torch.cuda.synchronize()
-        if (mpm_big_step.launches - k3, mpm_step.launches - k2) != (1, 0):
-            fail(f"{what}: the step launched K3-fwd {mpm_big_step.launches - k3} and K2-fwd "
-                 f"{mpm_step.launches - k2} times, not once and never")
-        if not all(torch.isfinite(t).all() for t in mpm_fields(out_k).values()):
-            fail(f"{what}: the kernel's output is not finite")
+        got = {"K3-fwd": mpm_big_step.launches - k3, "K2-fwd": mpm_step.launches - k2}
+        if got != {k: int(k == kernel) for k in got}:
+            fail(f"{what}: the step launched {got}, not {kernel} once and the other never")
+        outs = {"": out_k}
+        if ckpt:
+            launch = mbk.launch_big if kernel == "K3-fwd" else mk.launch
+            outs[f" K={ckpt} checkpoints"] = launch(sim, sim.prepare(state, action), ckpt)[0]
         head, a_head = mpm_slice_envs(state, n_plain), action[:n_plain]
         out_p = sim._step_plain(head, a_head)
         out_64 = sim._step_plain(mpm_cast(head, torch.float64), a_head.double())
-        err, gates = mpm_gate(what, mpm_slice_envs(out_k, n_plain), out_p, out_64,
-                              per_env=per_env)
+        err = 0.0
+        for variant, out in outs.items():
+            if not all(torch.isfinite(t).all() for t in mpm_fields(out).values()):
+                fail(f"{what}{variant}: the kernel's output is not finite")
+            e, gates = mpm_gate(f"{what}{variant}", mpm_slice_envs(out, n_plain), out_p, out_64,
+                                per_env=per_env)
+            err = max(err, e)
         witness = sim._step_plain(head.replace(mu=torch.zeros_like(head.mu),
                                                lamda=torch.zeros_like(head.lamda)), a_head)
     refs = mpm_fields(out_64)
@@ -2120,7 +2168,7 @@ def big_phases(dev):
                     if which == "kernel":
                         r[which] = cuda_ms(lambda: mpm_big_step(wsim, ws, wa), reps=10)
                     else:
-                        r[which] = cuda_ms(lambda: wsim._step_plain(ws, wa), reps=1, warmup=1)
+                        r[which] = cuda_ms(lambda: wsim._step_plain(ws, wa), reps=1, warmup=0)
                 rounds.append(r)
         key = f"{name} B={B}"
         times[key] = {k: sum(r[k] for r in rounds) / len(rounds) for k in rounds[0]}
@@ -2192,11 +2240,13 @@ SOUP_BWD_TIME_B = (8, 32)
 # (its recompute of the forward not counted): the blend 15, friction 28,
 # the tangent and its norm 24, the normal component 20, the collider's
 # velocity 3, three quaternion rotations' adjoints 306, the normal's 20, the
-# influence 6, the SDF's value and gradient (box 60, container 75), the
-# inverse quaternion's 35, the offset 3: 520 for a box, 535 for a bowl. A
-# touched cell under collision: the forward's FLOP_MPM_GRID and collide's,
-# the mass normalisation's adjoint 12, and collide's adjoint per primitive.
-FLOP_MPM_COLLIDE_BWD = {"box": 520, "container": 535}
+# influence 6, the SDF's value and gradient (box 60, container 75, sphere
+# 38: the norm 7, p . dg 5, L^2 1, 8 per component, the radius 1), the
+# inverse quaternion's 35, the offset 3: 520 for a box, 535 for a bowl, 498
+# for a sphere. A touched cell under collision: the forward's FLOP_MPM_GRID
+# and collide's, the mass normalisation's adjoint 12, and collide's adjoint
+# per primitive.
+FLOP_MPM_COLLIDE_BWD = {"box": 520, "container": 535, "sphere": 498}
 
 
 def bwd_cell_flops(sim):
@@ -2274,15 +2324,16 @@ def checkpointed(sim):
     return out
 
 
-def grad_gate(what, sim, state, action, steps, n_plain, zero, witness):
+def grad_gate(what, sim, state, action, steps, n_plain, zero, witness, draws=1):
     """One macro step's VJP through each kernel step of ``steps`` (K ->
     step(state, action)) on all envs of ``state``, held on its first
     ``n_plain`` envs to per_env_gate against the float32 and float64 plain
     VJPs (scatter transfer, ``checkpointed``), the inputs in ``zero`` (and
-    any whose float64 cotangent is 0) 0 on both; the float32 plain VJP of
-    ``witness(state, sim)`` (a (state, plain step) pair) must miss the gate
-    by WITNESS_MARGIN. Returns (the largest |kernel - plain|, the kernels'
-    cotangents by K)."""
+    any whose float64 cotangent is 0) 0 on both; with ``draws`` > 1, each
+    side's median over that many runs of the VJP (Draws); the float32 plain
+    VJP of ``witness(state, sim)`` (a (state, plain step) pair) must miss
+    the gate by WITNESS_MARGIN. Returns (the largest |kernel - plain|, the
+    kernels' cotangents by K, of the first draw)."""
     import torch
 
     psim = plain_mpm_sim(sim)
@@ -2291,6 +2342,8 @@ def grad_gate(what, sim, state, action, steps, n_plain, zero, witness):
     hs, ha, hc = mpm_slice_envs(state, n_plain), action[:n_plain], [c[:n_plain] for c in cot]
     plain = checkpointed(psim)._step_plain
     g32 = mpm_vjp(plain, hs, ha, hc)
+    if draws > 1:
+        g32 = Draws([g32] + [mpm_vjp(plain, hs, ha, hc) for _ in range(draws - 1)])
     g64 = mpm_vjp(plain, mpm_cast(hs, torch.float64), ha.double(), [c.double() for c in hc])
     # an input that the scene leaves untouched (a ground the material never
     # reaches) has a 0 cotangent in float64: it must be 0 in the kernel too
@@ -2299,14 +2352,17 @@ def grad_gate(what, sim, state, action, steps, n_plain, zero, witness):
         log(f"[{what}] the float64 cotangent is 0 in every env, so must the kernel's be: {found}")
     err, grads, gates = 0.0, {}, {}
     for K, step in steps.items():
-        grads[K] = mpm_vjp(step, state, action, cot)
+        runs = [mpm_vjp(step, state, action, cot) for _ in range(draws)]
         torch.cuda.synchronize()
-        err = max(err, per_env_gate(f"{what} K={K}", names, [g[:n_plain] for g in grads[K]], g32,
-                                    g64, zero=tuple(zero) + tuple(found), gates=gates))
+        grads[K] = runs[0]
+        kernel = [[g[:n_plain] for g in r] for r in runs]
+        err = max(err, per_env_gate(f"{what} K={K}", names,
+                                    kernel[0] if draws == 1 else Draws(kernel), g32, g64,
+                                    zero=tuple(zero) + tuple(found), gates=gates))
     ws, wstep = witness(hs, psim)
     wit = mpm_vjp(wstep, ws, ha, hc)
     ratios = {n: (w.double() - r).reshape(n_plain, -1).norm(dim=1).median().item() / gates[n]
-              for n, w, r in zip(names, wit, g64) if n in gates}
+              for n, w, r in zip(names, wit, g64) if gates.get(n, 0) > 0}
     log(f"[{what}] witness: median error vs float64 over the gate "
         + ", ".join(f"{k} {v:.3e}x" for k, v in ratios.items())
         + f" (the largest must be at least {WITNESS_MARGIN:g}x)")
@@ -2626,9 +2682,7 @@ def big_grad_phases(dev):
             prepared = wsim.prepare(ws, wa)
             fields, frame, vw = mbk._big_inputs(wsim, prepared, K)
             wout, hist = mbk.launch_big(wsim, prepared, K)
-            wcot = mpm_vjp_cot(wout)
-            wcot = [c.contiguous() for c in wcot[:5]] + [
-                torch.stack(wcot[5::2], 1).contiguous(), torch.stack(wcot[6::2], 1).contiguous()]
+            wcot = bwd_cots(wout)
             key = f"{name} B={B}"
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -2675,10 +2729,10 @@ def big_grad_phases(dev):
                         st = wsim._substep(f, st)
                     return st
 
-                seg_plain_ms = cuda_ms(plain_segment, reps=1, warmup=1)
+                seg_plain_ms = cuda_ms(plain_segment, reps=1, warmup=0)
                 with torch.enable_grad():
                     plain_ms = cuda_ms(lambda: mpm_vjp(psim._step_plain, hs, ha, hc), reps=1,
-                                       warmup=1)
+                                       warmup=0)
                 log(f"[big-bwd-time] the plain VJP (forward and backward, scatter transfer) of "
                     f"one {name} call at B={B_ELASTO_GRAD}: {plain_ms:.2f} ms; the plain forward "
                     f"of the segment's {L - 1} substeps at B={B}: {seg_plain_ms:.2f} ms")
@@ -2689,8 +2743,7 @@ def big_grad_phases(dev):
         prepared = rsim.prepare(rs, ra)
         fields, frame, vw = mk._inputs(rsim, prepared)
         rout, rhist = mk.launch(rsim, prepared, ROPE_STRIDE)
-        rcot = [c.contiguous() for c in mpm_vjp_cot(rout)]
-        rcot[5], rcot[6] = (torch.stack([t], 1).contiguous() for t in rcot[5:])
+        rcot = bwd_cots(rout)
         rope_bwd_ms = cuda_ms(lambda: mk._backward(rsim, fields, frame, vw, rhist, ROPE_STRIDE,
                                                    rcot), reps=5)
         cells, bottom = mpm_work(rsim, rs.x, rout.x)
@@ -2780,8 +2833,7 @@ def k2_bwd_inputs(sim, s, a, K):
         prepared = sim.prepare(s, a)
         fields, frame, vw = mk._inputs(sim, prepared)
         out, hist = mk.launch(sim, prepared, K)
-        cot = [c.contiguous() for c in mpm_vjp_cot(out)]
-        cot[5], cot[6] = (torch.stack([t], 1).contiguous() for t in cot[5:])
+        cot = bwd_cots(out)
     return fields, frame, vw, hist, cot
 
 
@@ -3383,6 +3435,398 @@ def train_envs_phases(dev):
     return paths, soup_err, water_err
 
 
+# ---- PlasticineLab's seven sphere scenes (unidom_torch/envs/plb_tasks.py):
+# [plb-sphere-k2] K2-fwd and K2-bwd under the sphere SDF on plb_move cut to
+# a 32^3 grid (1,000 von-Mises particles, one sphere, 40 substeps: K2 holds
+# it); [plb-parity] one K3-fwd macro step of every scene at its 64^3 grid,
+# and K3-bwd's VJP on plb_move and plb_triplemove (three spheres);
+# [plb-solve] the trajectory solver on plb_move, the slice's main path;
+# [plb-rollout] each scene's rollout through K3-fwd.
+# The plain steps hold the first B_PLB_K2_PLAIN of the B_PLB_K2 envs, the
+# forward's and the VJPs'. At 16 envs the VJP gate's statistic was bimodal:
+# the median over the envs of primitive.friction's per-env error fell at
+# 0.8e-6 or 1.8e-6 from one draw to the next, on the float32 plain VJP and
+# on K2-bwd alike, so that a median of 3 draws a side failed the 2x gate
+# when the kernel's fell high and the plain step's low; at 64 envs every
+# draw of both sides fell within 0.69e-6 to 0.89e-6 (the float64 VJP the
+# same to 1e-13 between draws; scripts/plb_bwd_gate_spread.py --k2, H100).
+B_PLB_K2 = 256
+B_PLB_K2_PLAIN = 64
+# Each scene at 64^3 on the solver's B_PLB_SOLVE envs, held to the per-env
+# median gate of [big-parity shape_elasto_plastic]: von-Mises return-map
+# ties flip with the atomics' order as sigma-clip's do (section 2 of
+# PERF.md). At 16 envs the VJP gate's median fell from one run to the next
+# as [plb-sphere-k2]'s did at 16 (plb_move's yield_stress cotangent: K3-bwd
+# at K = 1, which sums in double and repeats itself exactly, 1.511e-06
+# against the float32 plain VJP's 0.368-0.803e-06 in one run, H100).
+PLB_BWD_SCENES = ("plb_move", "plb_triplemove")
+# The VJP gates take each side's median over PLB_DRAWS runs (Draws, as
+# [mpm-bwd-parity] takes PARITY_DRAWS): on plb_triplemove at 16 envs one
+# run's per-env median swung 2.2x between three runs of the float32 plain
+# VJP (yield_stress) and 2.0x between three of K3-bwd at K = 7 (sphere 1's
+# size) (scripts/plb_bwd_gate_spread.py, H100), and a single run of the
+# lamda gate failed at 2.64x of the plain VJP's median.
+PLB_DRAWS = 3
+# The stride rule's K above HISTORY_BUDGET: ceil(sqrt(40 substeps)). At 16
+# envs it gives K = 1 on plb_move (a 64.0 MB history, under 64 MiB), at
+# B_PLB_SOLVE K = 7, the solver's; the VJPs run both K.
+PLB_STRIDE = 7
+# The solver on plb_move (the main path) at B_PLB_SOLVE envs, horizon
+# PLB_HORIZON, PLB_ITERS iterations, Adam at PLB_LR from N(0, PLB_INIT^2)
+# actions. At 16 envs the stride rule gives K = 1 (see above), and K3-seg
+# would not run; at 32 it gives PLB_STRIDE. The first iteration's action
+# gradient over its first PLB_GRAD_HORIZON macro steps, on all envs (K =
+# PLB_STRIDE, with K3-seg), is held against the float32 and float64 plain
+# steps, per env, as mpm_policy_grads' are. The plain step recomputes its
+# 64^3 grid ops in the backward pass: its gradient at 32 envs costs ~5 s
+# per macro step and precision (13.52 s in float32, 16.51 s in float64
+# over 3 steps, H100), so the gate holds 2 of the 10.
+B_PLB_SOLVE = 32
+PLB_HORIZON = 10
+PLB_ITERS = 4
+PLB_LR = 0.1
+PLB_INIT = 0.1
+PLB_GRAD_HORIZON = 2
+B_PLB_ROLLOUT = 32
+PLB_ROLLOUT_STEPS = 10
+# the farthest a sphere moves in a macro step of the parity and rollout
+# actions: plb_move's scale (plb_torus's is 1, a move that throws the body
+# about; plb_pinch's and plb_assembly's 0.01, so they run at half their
+# range)
+PLB_SPEED = 0.005
+
+
+def plb_speeds(env):
+    """Per action entry, the factor that keeps a velocity in [-1, 1] within
+    PLB_SPEED per macro step: min(1, PLB_SPEED / the sphere's scale)."""
+    import numpy as np
+
+    scale = np.concatenate([np.broadcast_to(np.asarray(p["scale"], np.float32), (3,))
+                            for p in env.scene["primitives"]])
+    return np.minimum(1.0, PLB_SPEED / scale).astype(np.float32)
+
+
+def plb_inputs(env, dev, seed=0):
+    """A plb env's reset state (``seed``) with random v and C per particle,
+    a yield stress per env drawn log-uniformly from 1e-4 to 1e-2 of the
+    conf's (the von-Mises return map then yields in every env, where the
+    random velocities strain the body most),
+    and each sphere moved to half its radius from the particle nearest to it
+    (every sphere touches material); and the first sub-action of velocities
+    uniform in [-1, 1] times ``plb_speeds``. From a numpy seed."""
+    import numpy as np
+    import torch
+
+    def dev32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    B = env.batch_size
+    rng = np.random.default_rng(seed)
+    _, s = env.reset(seed)
+    x0, prims = s.x[0], []
+    for p in s.primitives:
+        centre = p.position[0, 0]
+        near = x0[(x0 - centre).norm(dim=1).argmin()]
+        centre = near + (centre - near) / (centre - near).norm().clamp_min(1e-12) * (
+            0.5 * p.size[0, 0])
+        prims.append(p.replace(position=centre.expand_as(p.position).contiguous()))
+    s = s.replace(v=dev32(0.2 * rng.standard_normal(s.v.shape)),
+                  C=dev32(0.5 * rng.standard_normal(s.C.shape)),
+                  yield_stress=s.yield_stress * dev32(10.0 ** rng.uniform(-4, -2, (B, 1))),
+                  primitives=tuple(prims))
+    macro = rng.uniform(-1, 1, (B, env.action_size)) * plb_speeds(env)
+    sub, s = env.get_primitive_actions(dev32(macro), s)
+    return s, sub[:, 0].contiguous()
+
+
+def plb_size_check(what, grads, n_prim):
+    """Fail unless each sphere's size[0] cotangent is non-zero in every env
+    and its size[1] and size[2] cotangents are 0, at every K of ``grads``
+    (grad_gate's, which gated them)."""
+    names = mpm_vjp_names(n_prim)
+    for K, g in grads.items():
+        for i in range(n_prim):
+            size = g[names.index("primitive.size" if n_prim == 1 else f"primitive{i}.size")]
+            if not (size[:, 0] != 0).all() or (size[:, 1:] != 0).any():
+                fail(f"{what} K={K}: sphere {i}'s size cotangent is 0 in some env, or not 0 "
+                     "beyond size[0]")
+            log(f"[{what}] K={K}: sphere {i}'s size[0] cotangent, |min| over envs "
+                f"{size[:, 0].abs().min().item():.3e}, |max| {size[:, 0].abs().max().item():.3e}")
+
+
+def plb_phases(dev, smi):
+    """PlasticineLab on the card: [plb-sphere-k2], [plb-parity], [plb-solve]
+    (the main path: TrajectorySolver on plb_move through K3-fwd with
+    checkpoints, K3-seg and K3-bwd) and [plb-rollout]. Returns each path's
+    launches by kernel and the largest |kernel - plain| by kernel."""
+    import numpy as np
+    import torch
+
+    from unidom_torch import make_env
+    from unidom_torch.algorithms.solver import TrajectorySolver
+    from unidom_torch.engine.mpm import kernel_route
+    from unidom_torch.envs.plb_tasks import PLB_BASE_CONF, PLB_SCENES, PlbSceneEnv
+    from unidom_torch.ops.cuda import mpm_big_kernel as mbk
+    from unidom_torch.ops.cuda import mpm_kernel as mk
+    from unidom_torch.ops.cuda.mpm_big_kernel import mpm_big_step
+    from unidom_torch.ops.cuda.mpm_kernel import mpm_step
+
+    paths, errs = {}, {}
+
+    # ---- [plb-sphere-k2]: plb_move at a 32^3 grid through K2
+    t_phase = time.perf_counter()
+    conf = dataclasses.replace(PLB_BASE_CONF, n_grid=32, res=(32, 32, 32), n_primitive=1,
+                               task="plb_move")
+    env = PlbSceneEnv("plb_move", B_PLB_K2, conf=conf, device=dev)
+    s, a = plb_inputs(env, dev)
+    sim = env.simulator
+    P, steps = sim.n_particles, conf.steps
+    route, K = kernel_route(sim), mk.checkpoint_stride(B_PLB_K2, P, steps)
+    log(f"[plb-sphere-k2] plb_move at a 32^3 grid, B={B_PLB_K2}, P={P}, {steps} substeps, SDFs "
+        f"{sim.sdf_names}: kernel_route {route!r}, stride rule K = {K}")
+    if route != "k2" or K != PLB_STRIDE:
+        fail(f"plb_move at 32^3 goes to {route!r} at K = {K}, not 'k2' at K = {PLB_STRIDE}")
+    zero()
+    errs["K2-fwd"], out = big_parity("plb-sphere-k2", sim, s, a, B_PLB_K2_PLAIN, per_env=True,
+                                     kernel="K2-fwd", ckpt=K)
+    log(f"[plb-sphere-k2] the forward gate: {time.perf_counter() - t_phase:.2f} s")
+    zero()
+    errs["K2-bwd"], grads = grad_gate(
+        "plb-sphere-k2 bwd", sim, s, a,
+        {k: functools.partial(lambda s_, a_, k: mpm_step(sim, s_, a_, ckpt_stride=k), k=k)
+         for k in (1, K)}, B_PLB_K2_PLAIN, (), no_stiffness, PLB_DRAWS)
+    c = counts()
+    if c != expected(K2_fwd=2 * PLB_DRAWS, K2_bwd=2 * PLB_DRAWS,
+                     K2_seg=PLB_DRAWS * math.ceil(steps / K)):
+        fail(f"plb-sphere-k2's VJPs at K = 1 and {K} launched {c}")
+    plb_size_check("plb-sphere-k2 bwd", grads, 1)
+    log(f"[plb-sphere-k2] the gates: {time.perf_counter() - t_phase:.2f} s")
+    del grads
+    with torch.no_grad():
+        prepared = sim.prepare(s, a)
+        fields, frame, vw = mk._inputs(sim, prepared)
+        kout, hist = mk.launch(sim, prepared, K)
+        cot = bwd_cots(kout)
+        fwd_ms = cuda_ms(lambda: mk.launch(sim, prepared), reps=5)
+        bwd_ms = cuda_ms(lambda: mk._backward(sim, fields, frame, vw, hist, K, cot), reps=3)
+        plain_ms = cuda_ms(lambda: sim._step_plain(s, a), reps=1, warmup=0)
+        fb = mpm_bound(sim, prepared, kout, big_cell_flops(sim))
+        cells, bottom = mpm_work(sim, s.x, kout.x)
+        bb = mpm_bwd_bound(sim, B_PLB_K2, K, cells, bottom, bwd_cell_flops(sim))
+    log(f"[plb-sphere-k2] one call at B={B_PLB_K2}: K2-fwd (no history) {fwd_ms:.4f} ms, bound "
+        f"{fb[0][0]:.4f} ms ({fb[0][1]}: {big_cell_flops(sim)} operations per touched cell, "
+        f"{fb[3]:.1f} touched cells per env and substep); K2-bwd (K = {K}, its "
+        f"{math.ceil(steps / K)} K2-seg phases) {bwd_ms:.4f} ms, bound {bb[0][0]:.4f} ms "
+        f"({bb[0][1]}); the plain step {plain_ms:.2f} ms; {time.perf_counter() - t_phase:.2f} s")
+    del env, sim, s, a, out, prepared, fields, frame, vw, kout, hist, cot
+    torch.cuda.empty_cache()
+
+    # ---- [plb-parity]: one macro step of each scene at 64^3 through K3
+    t_phase = time.perf_counter()
+    errs["K3-fwd"] = errs["K3-bwd"] = 0.0
+    for scene in PLB_SCENES:
+        t0 = time.perf_counter()
+        env = make_env(scene, batch_size=B_PLB_SOLVE, device=dev)
+        s, a = plb_inputs(env, dev)
+        sim = env.simulator
+        if kernel_route(sim) != "k3":
+            fail(f"{scene} at its {sim.conf.res} grid goes to {kernel_route(sim)!r}, not 'k3'")
+        zero()
+        err, _ = big_parity(f"plb-parity {scene}", sim, s, a, B_PLB_SOLVE, per_env=True,
+                            ckpt=PLB_STRIDE)
+        errs["K3-fwd"] = max(errs["K3-fwd"], err)
+        if scene in PLB_BWD_SCENES:
+            zero()
+            err, grads = grad_gate(
+                f"plb-bwd-parity {scene}", sim, s, a,
+                {k: functools.partial(lambda s_, a_, k: mpm_big_step(sim, s_, a_, ckpt_stride=k),
+                                      k=k) for k in (1, PLB_STRIDE)},
+                B_PLB_SOLVE, (), no_stiffness, PLB_DRAWS)
+            errs["K3-bwd"] = max(errs["K3-bwd"], err)
+            c = counts()
+            if c != expected(K3_fwd=2 * PLB_DRAWS, K3_bwd=2 * PLB_DRAWS,
+                             K3_seg=PLB_DRAWS * math.ceil(sim.conf.steps / PLB_STRIDE)):
+                fail(f"{scene}'s VJPs at K = 1 and {PLB_STRIDE} launched {c}")
+            plb_size_check(f"plb-bwd-parity {scene}", grads, len(sim.sdf_names))
+            del grads
+        log(f"[plb-parity] {scene}: B={B_PLB_SOLVE}, P={sim.n_particles}, "
+            f"{len(sim.sdf_names)} spheres, stride rule K = {mk.checkpoint_stride(B_PLB_SOLVE, sim.n_particles, sim.conf.steps)}; "
+            f"{time.perf_counter() - t0:.2f} s")
+        del env, sim, s, a
+        torch.cuda.empty_cache()
+    log(f"[plb-parity] {time.perf_counter() - t_phase:.2f} s")
+
+    # ---- [plb-solve]: the main path, TrajectorySolver on plb_move through K3
+    t_phase = time.perf_counter()
+    env = make_env("plb_move", batch_size=B_PLB_SOLVE, device=dev)
+    _, s0 = env.reset(0)
+    sim = env.simulator
+    steps = sim.conf.steps
+    K = mk.checkpoint_stride(B_PLB_SOLVE, sim.n_particles, steps)
+    if K != PLB_STRIDE:
+        fail(f"the stride rule gives plb_move at {B_PLB_SOLVE} envs K = {K}, not {PLB_STRIDE}")
+    per_it = expected(K3_fwd=PLB_HORIZON, K3_bwd=PLB_HORIZON,
+                      K3_seg=PLB_HORIZON * math.ceil(steps / K))
+    iterations = []
+
+    class TimedSolver(TrajectorySolver):
+        """Times each update and reads its launches and peak memory."""
+
+        def step(self, actions, optimizer, state):
+            zero()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = super().step(actions, optimizer, state)
+            torch.cuda.synchronize()
+            iterations.append((time.perf_counter() - t0, counts(),
+                               torch.cuda.max_memory_allocated(), out[0].sum(0)))
+            return out
+
+    solver = TimedSolver(env, PLB_HORIZON, lr=PLB_LR)
+    a0 = solver.init_actions(torch.Generator().manual_seed(0), scale=PLB_INIT)
+    held = torch.cuda.memory_allocated()
+    best, best_reward, history = solver.solve(s0, n_iters=PLB_ITERS, actions=a0)
+    for it, (sec, c, peak, _) in enumerate(iterations):
+        log(f"[plb-solve] iteration {it}: mean total reward {history[it]:.6f}; launches {c} "
+            f"(expected {per_it}); {sec:.4f} s, {B_PLB_SOLVE * PLB_HORIZON / sec:.2f} env-steps/s "
+            f"(forward and backward); peak memory {peak / 1e9:.3f} GB ({held / 1e9:.3f} GB "
+            "held before)")
+        if c != per_it:
+            fail(f"solver iteration {it} launched {c}")
+    paths["plb_move_solve"] = {k: v * PLB_ITERS for k, v in per_it.items()}
+    gain = best_reward.mean().item() - history[0]
+    log(f"[plb-solve] plb_move B={B_PLB_SOLVE}, horizon {PLB_HORIZON}, {PLB_ITERS} iterations, "
+        f"Adam lr {PLB_LR}, stride K = {K}: mean total reward by iteration "
+        f"{[round(h, 6) for h in history]}; mean best total {best_reward.mean().item():.6f}, "
+        f"{gain:.6f} above the first iteration's; {int((best_reward > iterations[0][3]).sum())} "
+        f"of {B_PLB_SOLVE} envs improved on their first total; seconds per iteration "
+        f"{[round(i[0], 4) for i in iterations]}")
+    if not (torch.isfinite(best_reward).all() and torch.isfinite(best).all()):
+        fail("the solver's best rewards or actions are not finite")
+    if not (gain > 0 and history[-1] > history[0]):
+        fail("the solver did not improve the mean total reward over its iterations")
+    pa = best.clone().requires_grad_()
+    profile_device(f"plb-solve one iteration B={B_PLB_SOLVE}",
+                   lambda: TrajectorySolver.step(solver, pa, solver.make_optimizer(pa), s0), top=8)
+    # K3's times at the solver's width, beside the plain step and the bounds
+    with torch.no_grad():
+        sub, _ = env.get_primitive_actions(best[:, 0], s0)
+        prepared = sim.prepare(s0, sub[:, 0])
+        fields, frame, vw = mbk._big_inputs(sim, prepared, K)
+        kout, hist = mbk.launch_big(sim, prepared, K)
+        cot = bwd_cots(kout)
+        ck_ms = cuda_ms(lambda: mbk.launch_big(sim, prepared, K), reps=5)
+        roll_ms = cuda_ms(lambda: mbk.launch_big(sim, prepared), reps=5)
+        bwd_ms = cuda_ms(lambda: mbk._backward(sim, fields, frame, vw, hist, K, cot), reps=3)
+        seg_ms = cuda_ms(lambda: mbk.mpm_big_step_seg(sim, prepared, hist, K, 1), reps=5)
+        plain_ms = cuda_ms(lambda: sim._step_plain(s0, sub[:, 0]), reps=1, warmup=0)
+        fb = mpm_bound(sim, prepared, kout, big_cell_flops(sim))
+        cells, bottom = mpm_work(sim, s0.x, kout.x)
+        bb = mpm_bwd_bound(sim, B_PLB_SOLVE, K, cells, bottom, bwd_cell_flops(sim))
+        seg_flops, seg_bytes = seg_work(sim, B_PLB_SOLVE, K, cells, bottom)
+        sb = bound(nbytes([hist[:, 0]]) * (1 + K) + nbytes([frame, vw]) + seg_bytes, seg_flops)
+    log(f"[plb-solve] K3 at plb_move B={B_PLB_SOLVE}, one call: K3-fwd with checkpoints (K = {K}) "
+        f"{ck_ms:.4f} ms, the rollout's K3-fwd {roll_ms:.4f} ms, bound {fb[0][0]:.4f} ms "
+        f"({fb[0][1]}: {big_cell_flops(sim)} operations per touched cell, {fb[3]:.1f} touched "
+        f"cells per env and substep); K3-bwd with its {math.ceil(steps / K)} K3-seg phases "
+        f"{bwd_ms:.4f} ms, bound {bb[0][0]:.4f} ms ({bb[0][1]}); K3-seg alone, a segment of {K} "
+        f"carries, {seg_ms:.4f} ms, bound {sb[0]:.4f} ms ({sb[1]}); the plain step "
+        f"{plain_ms:.2f} ms; launches per solver iteration {per_it}")
+    del solver, best, pa, prepared, fields, frame, vw, kout, hist, cot
+    torch.cuda.empty_cache()
+    # the first iteration's action gradient against the plain steps, per env
+    _, gs = env.reset(0)
+    ga = a0[:, :PLB_GRAD_HORIZON].clone()
+
+    def action_grad(e, actions, state):
+        act = actions.detach().clone().requires_grad_()
+        with torch.enable_grad():
+            loss, _, _ = TrajectorySolver(e, PLB_GRAD_HORIZON).rollout_loss(act, state)
+            (g,) = torch.autograd.grad(loss, act)
+        return g.double().reshape(B_PLB_SOLVE, -1)
+
+    plain, seconds = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        e = mpm_plain_env(env, dtype)
+        e.simulator = checkpointed(e.simulator)
+        e.simulator.transfer_mode = "scatter"
+        e.simulator.step_batch = e.simulator._step_plain
+        t0 = time.perf_counter()
+        plain[dtype] = action_grad(e, ga.to(dtype), mpm_cast(gs, dtype))
+        torch.cuda.synchronize()
+        seconds[str(dtype)] = time.perf_counter() - t0
+    zero()
+    t0 = time.perf_counter()
+    gk = action_grad(env, ga, gs)  # K3-fwd with checkpoints, K3-seg and K3-bwd
+    torch.cuda.synchronize()
+    seconds["kernel"] = time.perf_counter() - t0
+    c = counts()
+    if c != expected(K3_fwd=PLB_GRAD_HORIZON, K3_bwd=PLB_GRAD_HORIZON,
+                     K3_seg=PLB_GRAD_HORIZON * math.ceil(steps / K)):
+        fail(f"the gradient gate's rollout launched {c}")
+    errs["K3-bwd"] = max(errs["K3-bwd"], per_env_gate(
+        f"plb-solve-grad B={B_PLB_SOLVE}", ["actions"], [gk], [plain[torch.float32]],
+        [plain[torch.float64]]))
+    log(f"[plb-solve-grad B={B_PLB_SOLVE}] K = {K}; seconds per gradient: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
+    if (plain[torch.float64].norm(dim=1) == 0).any():
+        fail("a float64 per-env action gradient of plb_move is 0")
+    log(f"[plb-solve] {time.perf_counter() - t_phase:.2f} s")
+    del env, gs, ga, gk, plain
+    torch.cuda.empty_cache()
+
+    # ---- [plb-rollout]: each scene's rollout through K3-fwd
+    t_phase = time.perf_counter()
+    rollout = expected()
+    for scene in PLB_SCENES:
+        env = make_env(scene, batch_size=B_PLB_ROLLOUT, device=dev)
+        sim = env.simulator
+        _, s = env.reset(0)
+        rng = np.random.default_rng(1)
+        acts = [torch.from_numpy((rng.uniform(-1, 1, (B_PLB_ROLLOUT, env.action_size))
+                                  * plb_speeds(env)).astype(np.float32)).to(dev)
+                for _ in range(PLB_ROLLOUT_STEPS)]
+        with torch.no_grad():
+            env.step_diff(acts[0], s)  # the rollout's kept scratch, zeroed once
+            zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = s
+            for act in acts:
+                _, reward, _, info = env.step_diff(act, st)
+                st = info["state"]
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            c = counts()
+            if c != expected(K3_fwd=PLB_ROLLOUT_STEPS):
+                fail(f"the {scene} rollout launched {c}")
+            if not (torch.isfinite(reward).all() and torch.isfinite(st.x).all()):
+                fail(f"the {scene} rollout's rewards or particles are not finite")
+            rollout = {k: rollout[k] + c[k] for k in rollout}
+            sub, _ = env.get_primitive_actions(acts[0], s)
+            prepared = sim.prepare(s, sub[:, 0])
+            k_ms = cuda_ms(lambda: mbk.launch_big(sim, prepared), reps=5)
+            out = mbk.launch_big(sim, prepared)
+            # the plain step on the solver's scene alone (1.3-2.1 s a call)
+            p_ms = (cuda_ms(lambda: sim._step_plain(s, sub[:, 0]), reps=1, warmup=0)
+                    if scene == "plb_move" else None)
+            fb = mpm_bound(sim, prepared, out, big_cell_flops(sim))
+        log(f"[plb-rollout] {scene} B={B_PLB_ROLLOUT}, P={sim.n_particles}, "
+            f"{len(sim.sdf_names)} spheres, {PLB_ROLLOUT_STEPS} macro steps, actions at "
+            f"{float(plb_speeds(env).max()):g} of the scene's range: "
+            f"{B_PLB_ROLLOUT * PLB_ROLLOUT_STEPS / sec:.2f} env-steps/s ({sec:.4f} s, launches "
+            f"{c}); K3-fwd {k_ms:.4f} ms per launch, plain step "
+            f"{'not timed' if p_ms is None else f'{p_ms:.2f} ms'}, bound "
+            f"{fb[0][0]:.4f} ms ({fb[0][1]}, {fb[3]:.1f} touched cells per env and substep); "
+            f"final reward mean {reward.mean().item():.4f}; {smi}")
+        del env, sim, s, st, acts, prepared, out
+        torch.cuda.empty_cache()
+    paths["plb_rollout"] = rollout
+    log(f"[plb-rollout] {time.perf_counter() - t_phase:.2f} s")
+    return paths, errs
+
+
 def main():
     import torch
 
@@ -3457,6 +3901,9 @@ def main():
     k3_design_phase(dev)
     # ---- the other DaXBench envs' training (see train_envs_phases)
     train_paths, soup_err, water_err = train_envs_phases(dev)
+    # ---- PlasticineLab's sphere scenes through K2 and K3 (see plb_phases)
+    plb_paths, plb_errs = plb_phases(dev, smi)
+    train_paths.update(plb_paths)
 
     def by_path(kernel):
         return {path: c[kernel] for path, c in train_paths.items() if c[kernel]}
@@ -3465,8 +3912,10 @@ def main():
                           (big_entry, "K3-fwd"), (big_seg_entry, "K3-seg"),
                           (big_bwd_entry, "K3-bwd")):
         entry["launches_by_path"].update(by_path(kernel))
-    bwd_entry["max_abs_err"] = max(bwd_entry["max_abs_err"], water_err)
-    big_bwd_entry["max_abs_err"] = max(big_bwd_entry["max_abs_err"], soup_err)
+    bwd_entry["max_abs_err"] = max(bwd_entry["max_abs_err"], water_err, plb_errs["K2-bwd"])
+    big_bwd_entry["max_abs_err"] = max(big_bwd_entry["max_abs_err"], soup_err, plb_errs["K3-bwd"])
+    mpm_entry["max_abs_err"] = max(mpm_entry["max_abs_err"], plb_errs["K2-fwd"])
+    big_entry["max_abs_err"] = max(big_entry["max_abs_err"], plb_errs["K3-fwd"])
     torch.cuda.empty_cache()
 
     t_phase = time.perf_counter()
@@ -3764,7 +4213,10 @@ def main():
     _, (k, p, r) = policy_grads(make_env("fold_cloth3", batch_size=B_GRAD, conf=tiny,
                                          aux_reward=False, device=dev), 1)
     grad_err = per_env_gate(f"policy-grad tiny B={B_GRAD}", ["policy"], [k], [p], [r])
-    full_env = make_env("fold_cloth3", batch_size=B_GRAD_FULL, aux_reward=False, device=dev)
+    full = ClothConf(task="fold_cloth3", goal_path=goal_path("fold_cloth3"), seed=1,
+                     n_substeps=FULL_SUBSTEPS)
+    full_env = make_env("fold_cloth3", batch_size=B_GRAD_FULL, conf=full, aux_reward=False,
+                        device=dev)
     rel_k, rel_p, cos_k, cos_p = [], [], [], []
     for seed in FULL_SEEDS:
         split, (k, p, r) = policy_grads(full_env, seed)
@@ -3773,7 +4225,8 @@ def main():
         rel_p.append(((p - r).norm(dim=1) / r.norm(dim=1))[active])
         cos_k.append(torch.nn.functional.cosine_similarity(k[active], r[active], dim=1))
         cos_p.append(torch.nn.functional.cosine_similarity(p[active], r[active], dim=1))
-        log(f"[policy-grad] full width B={B_GRAD_FULL}, noise seed {seed}: {int(active.sum())} "
+        log(f"[policy-grad] full width B={B_GRAD_FULL}, {FULL_SUBSTEPS} substeps per robot step, "
+            f"noise seed {seed}: {int(active.sum())} "
             f"envs hold cloth; per-env gradient split vs the trainer's: relative norm "
             f"{split:.3e}; relative error vs float64, kernel "
             f"{' '.join(f'{e:.2e}' for e in rel_k[-1].tolist())}, float32 plain "

@@ -188,17 +188,20 @@ def compare_fwd(what, kernel, plain):
 def rehearse_k2(mk, dtype, steps, clusters):
     """K2-bwd (under autograd of K2-fwd) on shape_rope cut to ``steps``
     substeps at each cluster size, K = 1 and K = 2, a bowl, position
-    control and whip_rope (two envs), all cut to ``steps`` substeps."""
+    control, whip_rope and von Mises under one and three spheres (two envs),
+    all cut to ``steps`` substeps."""
     from unidom_torch import make_env
 
     worst = 0.0
     cases = [("shape_rope", False), ("bowl_water", False), ("plastic", True), ("von_mises", True),
-             ("whip_rope", True)]
+             ("whip_rope", True), ("sphere", False), ("spheres3", False)]
     for name, pc in cases:
         if name == "whip_rope":
             env = make_env("whip_rope", batch_size=2, device="cpu")
             sim, s = env.simulator, cs.whip_rope_parity_state(env, torch.device("cpu"))
             a = torch.tensor(cs.MPM_ACTION, dtype=torch.float32).expand(2, 6).contiguous()
+        elif name in ("sphere", "spheres3"):
+            sim, s, a = sphere_config_sim(1 if name == "sphere" else 3, 2)
         else:
             sim, s, a = cs.mpm_config_sim(name, 2, torch.device("cpu"), position_control=pc)
         _cut(sim, s, steps)
@@ -246,22 +249,77 @@ def rehearse_k2seg(mk, sim, s, a, cluster):
     return worst
 
 
+# The plb scenes' SDF on a small grid: a von-Mises bar with one sphere at
+# its side, or three (as plb_triplemove: two at its sides, one on top),
+# each reaching 0.01 into it.
+SPHERE_CENTRES = {1: [(0.25, 0.08, 0.2)],
+                  3: [(0.17, 0.08, 0.2), (0.25, 0.13, 0.25), (0.33, 0.08, 0.3)]}
+
+
+def sphere_scene(sim, make_primitive, n_spheres=1, steps=8):
+    """A von-Mises bar and ``n_spheres`` spheres of radius 0.03
+    (SPHERE_CENTRES) on a grid of at least 16^3 cells of 1/32; returns the
+    state before the simulator's reset."""
+    from unidom_torch.engine.mpm import VON_MISES
+
+    state = sim.add_box(None, size=[0.2, 0.06, 0.06], init_pos=[0.25, 0.08, 0.25],
+                        material=VON_MISES, density=1.5)
+    for centre in SPHERE_CENTRES[n_spheres]:
+        state.primitives.append(make_primitive(steps, friction=0.9, softness=666.0,
+                                               color=[0.7] * 3, size=[0.03, 0.0, 0.0],
+                                               init_pos=list(centre)))
+        sim.register_primitive_sdf("sphere")
+    return state
+
+
+def sphere_config_sim(n_spheres, B):
+    """(simulator, perturbed state, action) of ``sphere_scene`` on
+    tests/test_pallas_mpm.py's small grid (8 substeps), v and C perturbed as
+    in ``chip_smoke.mpm_config_sim``, at a yield stress that the von-Mises
+    return map reaches in one macro step."""
+    from unidom_torch.engine.mpm import MPMConf, MPMSimulator
+    from unidom_torch.engine.primitives import create_primitive
+
+    rng = np.random.default_rng(1)
+    conf = MPMConf(n_grid=32, dt=2e-4, steps=8, E=100.0, nu=0.1, res=(16, 16, 16),
+                   ground_friction=0.5, task="test")
+    sim = MPMSimulator(conf, B, use_position_control=False, device="cpu")
+    s = sim.reset(sphere_scene(sim, lambda *a, **k: create_primitive(*a, **k, device="cpu"),
+                               n_spheres))
+    a = np.tile(np.asarray([0.4, -0.2, 0.3, 0.05, 0.05, 0.05], np.float32), (B, n_spheres))
+    s = s.replace(v=torch.from_numpy(0.2 * rng.standard_normal(s.v.shape, dtype=np.float32)),
+                  C=torch.from_numpy(0.5 * rng.standard_normal(s.C.shape, dtype=np.float32)),
+                  yield_stress=torch.full_like(s.yield_stress, 0.005))
+    return sim, s, torch.from_numpy(a)
+
+
+def big_configs():
+    """tests/test_torch_mpm_big.py's configs and the plb scenes' SDF: a
+    von-Mises bar under one sphere and under three (``sphere_scene``), at a
+    yield stress its return map reaches."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_mpm_big import CONFIGS
+
+    kwargs = dict(n_grid=32, dt=2e-4, steps=4, E=100.0, nu=0.1, res=(16, 16, 16),
+                  ground_friction=0.5, yield_stress=0.005)
+    return {**CONFIGS, **{
+        name: (kwargs, lambda sim, mk, n=n: sphere_scene(sim, mk, n, kwargs["steps"]), False)
+        for name, n in (("sphere_von_mises", 1), ("spheres3_von_mises", 3))}}
+
+
 def rehearse_k3(mbk, dtype):
     """K3-bwd (under autograd of K3-fwd with checkpoints) on
-    tests/test_torch_mpm_big.py's configs (4 substeps) at K = 1, 2 and 3
+    ``big_configs`` (4 substeps) at K = 1, 2 and 3
     (3: a segment of 3 and a short last one of 1); and, for each segment at
     K = 2 and 3, K3-seg's carries against the exact history's and its
     recorded grids (each touched cell's momentum and mass before the grid
     ops) against the gradient's P2G of the same carry (``p2g_sums``)."""
-    sys.path.insert(0, str(ROOT / "tests"))
-    from test_torch_mpm_big import CONFIGS
-
     from unidom_torch.engine.mpm import MPMConf, MPMSimulator
     from unidom_torch.engine.primitives import create_primitive
 
     worst = 0.0
     rng = np.random.default_rng(6)
-    for name, (kwargs, scene, pc) in CONFIGS.items():
+    for name, (kwargs, scene, pc) in big_configs().items():
         steps = kwargs["steps"]
         sim = MPMSimulator(MPMConf(**kwargs, task="t"), 1,
                            use_position_control=pc, device="cpu")
@@ -346,19 +404,16 @@ def rehearse_k2fwd(mk, dtype, steps, clusters):
 
 
 def rehearse_k3fwd(mbk, dtype):
-    """K3-fwd's rollout, no gradient, on tests/test_torch_mpm_big.py's
-    configs (a mixture of water, tofu and vegetables in two bowls, as
-    pour_soup; a sigma-clip slab; position control), twice: the second call
+    """K3-fwd's rollout, no gradient, on ``big_configs`` (a mixture of
+    water, tofu and vegetables in two bowls, as pour_soup; a sigma-clip
+    slab; position control; von Mises under one and three spheres), twice: the second call
     on the zeroed scratch the first kept, which must be 0 after each."""
-    sys.path.insert(0, str(ROOT / "tests"))
-    from test_torch_mpm_big import CONFIGS
-
     from unidom_torch.engine.mpm import MPMConf, MPMSimulator
     from unidom_torch.engine.primitives import create_primitive
 
     worst = 0.0
     rng = np.random.default_rng(6)
-    for name, (kwargs, scene, pc) in CONFIGS.items():
+    for name, (kwargs, scene, pc) in big_configs().items():
         sim = MPMSimulator(MPMConf(**kwargs, task="t"), 2, use_position_control=pc,
                            device="cpu")
         s = sim.reset(scene(sim, lambda *a, **k: create_primitive(*a, **k, device="cpu")))

@@ -144,9 +144,26 @@ __device__ float sdf_container(const float* size, const float* p, float* grad) {
   return cut ? l_rim - t : fabsf(l_shell - r) - t;
 }
 
+// sphere of radius size[0]; its gradient p / |p| is 0 at p = 0
+__device__ float sdf_sphere(const float* size, const float* p, float* grad) {
+  float len = sqrtf(p[0] * p[0] + p[1] * p[1] + p[2] * p[2] + 1e-12f);
+  if (grad)
+    for (int i = 0; i < 3; ++i) grad[i] = p[i] / len;
+  return len - size[0];
+}
+
+// the SDF of kind `kind` (SDF_KINDS in ops/cuda/mpm_kernel.py: 0 box,
+// 1 container, 2 sphere; Python refuses any other)
 __device__ __forceinline__ float sdf_eval(int kind, const float* size, const float* p,
                                           float* grad) {
-  return kind == 1 ? sdf_container(size, p, grad) : sdf_box(size, p, grad);
+  switch (kind) {
+    case 1:
+      return sdf_container(size, p, grad);
+    case 2:
+      return sdf_sphere(size, p, grad);
+    default:
+      return sdf_box(size, p, grad);
+  }
 }
 
 // ------------------------------------------------------------- 3x3 SVD
@@ -453,7 +470,7 @@ __device__ void load_prims(const Args& g, int b, int f, const float* rows, Prim*
     }
     pr.fric = fr[10];
     pr.soft = fr[11];
-    pr.kind = (g.sdf_kinds >> ip) & 1;
+    pr.kind = (g.sdf_kinds >> (4 * ip)) & 15;  // four bits per primitive
   }
 }
 
@@ -1079,6 +1096,16 @@ __device__ void sdf_container_bwd(const float* size, const float* p, float ddist
   dsize[2] -= ddist;
 }
 
+// The same for the sphere SDF (sdf_sphere, _grad_sphere): the distance
+// L - size[0] and the gradient p / L, L = sqrt(|p|^2 + 1e-12).
+__device__ void sdf_sphere_bwd(const float* size, const float* p, float ddist, const float* dg,
+                               float* dp, float* dsize) {
+  const float L = sqrtf(p[0] * p[0] + p[1] * p[1] + p[2] * p[2] + 1e-12f);
+  const float pd = p[0] * dg[0] + p[1] * dg[1] + p[2] * dg[2];
+  for (int i = 0; i < 3; ++i) dp[i] += ddist * p[i] / L + (dg[i] - p[i] * pd / (L * L)) / L;
+  dsize[0] -= ddist;
+}
+
 // Adjoint of collide_fwd for primitive ip: v is the node's velocity before
 // it, dv the cotangent of the velocity after it on entry and before it on
 // exit; the primitive's cotangents go to acc.add(ip * NPA + slot, value).
@@ -1176,10 +1203,16 @@ __device__ void collide_bwd(const Prim& pr, int ip, const float* gp, const float
   const float ddist = -de * e * pr.soft;
   acc.add(ip * NPA + PA_SOFT, -de * e * dist);
   float dsize[3] = {0.f, 0.f, 0.f}, dls[3] = {0.f, 0.f, 0.f};
-  if (pr.kind == 1)
-    sdf_container_bwd(pr.size, local, ddist, dgl, dls, dsize);
-  else
-    sdf_box_bwd(pr.size, local, ddist, dgl, dls, dsize);
+  switch (pr.kind) {
+    case 1:
+      sdf_container_bwd(pr.size, local, ddist, dgl, dls, dsize);
+      break;
+    case 2:
+      sdf_sphere_bwd(pr.size, local, ddist, dgl, dls, dsize);
+      break;
+    default:
+      sdf_box_bwd(pr.size, local, ddist, dgl, dls, dsize);
+  }
   for (int d = 0; d < 3; ++d) {
     acc.add(ip * NPA + PA_SIZE + d, dsize[d]);
     dlocal[d] += dls[d];

@@ -1,5 +1,6 @@
 """Environment registry (name -> constructor): every DaXBench env of the JAX
-package, with its aliases (push_rope, push_rope_hard)."""
+package, with its aliases (push_rope, push_rope_hard), and the plb scenes
+whose manipulators are spheres (``envs/plb_tasks.py``)."""
 
 from unidom_torch.envs.cloth_tasks import (
     FoldCloth1Env,
@@ -34,3 +35,13 @@ env_functions = {
     "pour_soup": PourSoupEnv,
     "shape_elasto_plastic": ShapeElastoPlasticEnv,
 }
+
+
+def _register_plb():
+    from unidom_torch.envs.plb_tasks import PLB_SCENES, make_plb_env
+
+    for name in PLB_SCENES:
+        env_functions[name] = make_plb_env(name)
+
+
+_register_plb()

@@ -53,7 +53,6 @@ from unidom_torch.ops.cuda._build import load_library
 from unidom_torch.ops.cuda.mpm_kernel import (
     MAX_PRIMITIVES,
     N_COMP,
-    SDF_KINDS,
     _device_and_stream,
     _inputs,
     _material,
@@ -62,6 +61,7 @@ from unidom_torch.ops.cuda.mpm_kernel import (
     _rebuild,
     _requires_grad,
     checkpoint_stride,
+    pack_sdf_kinds,
 )
 
 SOURCE = "mpm_big_step.cu"
@@ -242,14 +242,7 @@ def check_supported_big(sim, B=None, ckpt_stride=None):
     conf = sim.conf
     B = sim.batch_size if B is None else B
     cells = conf.res[0] * conf.res[1] * conf.res[2]
-    bad = [n for n in sim.sdf_names if n not in SDF_KINDS]
-    if bad:
-        raise NotImplementedError(
-            f"mpm_big_step's kernel evaluates the SDFs {sorted(SDF_KINDS)}, not {bad}")
-    if len(sim.sdf_names) > MAX_PRIMITIVES:
-        raise NotImplementedError(
-            f"mpm_big_step's kernel takes at most {MAX_PRIMITIVES} primitives, not "
-            f"{len(sim.sdf_names)}")
+    pack_sdf_kinds(sim.sdf_names)
     if cells > INT_MAX or N_COMP * sim.n_particles > INT_MAX or not 1 <= B <= 65535:
         raise NotImplementedError(
             f"mpm_big_step's kernel indexes an env's {cells} cells and {sim.n_particles} "
@@ -346,7 +339,7 @@ def _call_big(sim, fields, frame, vw, *, what, K=1, hist=None, outs=(None,) * 7,
     if what in (_SEG, _BWD) and record is None:
         record = _record(sim, B, K, dev)[0]
     grid_blocks = -(-min(cap, P) // THREADS)
-    sdf_kinds = sum(SDF_KINDS[n] << i for i, n in enumerate(sim.sdf_names))
+    sdf_kinds = pack_sdf_kinds(sim.sdf_names)
     n_launches = ctypes.c_int(0)
     lib = _lib()
     err = lib.mpm_big_step_launch(

@@ -49,7 +49,10 @@ SOURCE = "mpm_step.cu"
 MAX_PARTICLES = 1024
 MAX_CELLS = 196608  # the fused TPU kernel's own ceiling (cells x 32 bytes <= 6 MB)
 MAX_PRIMITIVES = 4
-SDF_KINDS = {"box": 0, "container": 1}
+# the SDFs the kernels evaluate, by the code the device switches on; four
+# bits per primitive in the packed word (pack_sdf_kinds)
+SDF_KINDS = {"box": 0, "container": 1, "sphere": 2}
+SDF_KIND_BITS = 4
 PRIM_FRAME_COLS = 12  # position (3), rotation (4), size (3), friction, softness
 N_COMP = 25  # x 3, v 3, C 9, F 9, J 1
 
@@ -90,6 +93,20 @@ MIN_PARTICLES_PER_CTA = 32
 
 _PTR, _INT, _FLOAT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _FWD, _SEG, _BWD = 0, 1, 2
+
+
+def pack_sdf_kinds(sdf_names):
+    """The primitives' SDF codes in one int, primitive i's in bits
+    [4 i, 4 i + 4), as the device decodes them (load_prims in
+    csrc/mpm_device.cuh). Raises for an SDF the kernels do not evaluate."""
+    bad = [n for n in sdf_names if n not in SDF_KINDS]
+    if bad:
+        raise NotImplementedError(
+            f"the MPM kernels evaluate the SDFs {sorted(SDF_KINDS)}, not {bad}")
+    if len(sdf_names) > MAX_PRIMITIVES:
+        raise NotImplementedError(
+            f"the MPM kernels take at most {MAX_PRIMITIVES} primitives, not {len(sdf_names)}")
+    return sum(SDF_KINDS[n] << (SDF_KIND_BITS * i) for i, n in enumerate(sdf_names))
 
 
 def checkpoint_stride(B, P, steps):
@@ -257,13 +274,7 @@ def check_supported(sim):
     """Raise unless the kernel takes ``sim``'s configuration."""
     conf = sim.conf
     cells = conf.res[0] * conf.res[1] * conf.res[2]
-    bad = [n for n in sim.sdf_names if n not in SDF_KINDS]
-    if bad:
-        raise NotImplementedError(
-            f"mpm_step's kernel evaluates the SDFs {sorted(SDF_KINDS)}, not {bad}")
-    if len(sim.sdf_names) > MAX_PRIMITIVES:
-        raise NotImplementedError(
-            f"mpm_step's kernel takes at most {MAX_PRIMITIVES} primitives, not {len(sim.sdf_names)}")
+    pack_sdf_kinds(sim.sdf_names)
     if sim.n_particles > MAX_PARTICLES or cells > MAX_CELLS:
         raise NotImplementedError(
             f"mpm_step's kernel holds at most {MAX_PARTICLES} particles and {MAX_CELLS} grid "
@@ -326,7 +337,7 @@ def _call(sim, fields, frame, vw, *, what, K=1, hist=None, outs=(None,) * 7, seg
     cells = rx * ry * rz
     grid = torch.empty((B, cells, 4), dtype=torch.float32, device=dev)
     mark = torch.empty((B, cells), dtype=torch.int32, device=dev)
-    sdf_kinds = sum(SDF_KINDS[n] << i for i, n in enumerate(sim.sdf_names))
+    sdf_kinds = pack_sdf_kinds(sim.sdf_names)
     gravity = [float(g) for g in conf.gravity]
     device, stream = _device_and_stream(dev)
     lib = _lib()

@@ -1,9 +1,9 @@
 """Signed-distance functions of the MPM engine's rigid primitives, with their
 unit normals written out by hand.
 
-Counterpart of ``unidom_tpu/ops/sdf.py`` for the two SDFs that the fused MPM
-kernel takes: ``box`` and ``container`` (the other six wait for the envs
-that use them). ``size`` is (..., 3) and broadcasts against points ``p``
+Counterpart of ``unidom_tpu/ops/sdf.py`` for the three SDFs that the MPM
+kernels take: ``box``, ``container`` and ``sphere`` (capsule, cylinder,
+torus, rolling_pin and chopsticks wait for the envs that use them). ``size`` is (..., 3) and broadcasts against points ``p``
 (..., 3) in the primitive's local frame.
 
 The JAX package takes the normal as ``jax.grad`` of the SDF, normalised.
@@ -37,6 +37,11 @@ def sdf_box(size, p):
     out = _length(torch.clamp(q, min=0.0))
     inner = torch.clamp(q.max(dim=-1).values, max=0.0)
     return out + inner
+
+
+def sdf_sphere(size, p):
+    """Sphere of radius size[0]."""
+    return _length(p) - size[..., 0]
 
 
 def _container_q(size, p):
@@ -81,6 +86,11 @@ def _grad_box(size, p):
     return _abs_grad(p) * (g_out + g_in)
 
 
+def _grad_sphere(size, p):
+    # the gradient of sqrt(|p|^2 + 1e-12): p / |p|, and 0 at p = 0
+    return p / _length(p)[..., None]
+
+
 def _grad_container(size, p):
     r, h, w, q0, q1 = _container_q(size, p)
     cut = h * q0 < w * q1
@@ -92,8 +102,8 @@ def _grad_container(size, p):
     return torch.stack([g0 * p[..., 0] / q0, g1, g0 * p[..., 2] / q0], dim=-1)
 
 
-SDF_REGISTRY = {"box": sdf_box, "container": sdf_container}
-_GRADS = {"box": _grad_box, "container": _grad_container}
+SDF_REGISTRY = {"box": sdf_box, "container": sdf_container, "sphere": sdf_sphere}
+_GRADS = {"box": _grad_box, "container": _grad_container, "sphere": _grad_sphere}
 
 
 def get_sdf(name):
