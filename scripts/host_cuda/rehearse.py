@@ -17,6 +17,11 @@ agree with the plain step to rounding (~1e-12 relative), which the card's
 float32 gates cannot show.
 
     python scripts/host_cuda/rehearse.py --f64 --out /tmp/rehearse k2 k3 k2fwd k3fwd
+    python scripts/host_cuda/rehearse.py --f64 --out /tmp/rehearse capsule cylinder torus \
+        rolling_pin chopsticks
+
+(the second: each SDF of ``TOOLS`` under K2-bwd, K2-fwd, K3-bwd with K3-seg's
+record, and K3-fwd's rollout, on a von-Mises bar it reaches into).
 
 Run it under ``timeout``: a barrier or shuffle that not every thread reaches
 hangs the host build. It runs small configurations (a few substeps, one or
@@ -185,23 +190,29 @@ def compare_fwd(what, kernel, plain):
                    [n for n, _, _ in pairs], "outputs")
 
 
-def rehearse_k2(mk, dtype, steps, clusters):
-    """K2-bwd (under autograd of K2-fwd) on shape_rope cut to ``steps``
-    substeps at each cluster size, K = 1 and K = 2, a bowl, position
-    control, whip_rope and von Mises under one and three spheres (two envs),
-    all cut to ``steps`` substeps."""
+K2_CASES = [("shape_rope", False), ("bowl_water", False), ("plastic", True),
+            ("von_mises", True), ("whip_rope", True), ("sphere", False), ("spheres3", False)]
+
+
+def rehearse_k2(mk, dtype, steps, clusters, cases=K2_CASES):
+    """K2-bwd (under autograd of K2-fwd) on ``cases`` (name, position
+    control), two envs each, all cut to ``steps`` substeps, at K = 1 and
+    K = 2: by default shape_rope at each cluster size, a bowl, position
+    control, whip_rope and von Mises under one and three spheres; a name of
+    TOOLS is that tool over the von-Mises bar."""
     from unidom_torch import make_env
 
     worst = 0.0
-    cases = [("shape_rope", False), ("bowl_water", False), ("plastic", True), ("von_mises", True),
-             ("whip_rope", True), ("sphere", False), ("spheres3", False)]
     for name, pc in cases:
         if name == "whip_rope":
             env = make_env("whip_rope", batch_size=2, device="cpu")
             sim, s = env.simulator, cs.whip_rope_parity_state(env, torch.device("cpu"))
             a = torch.tensor(cs.MPM_ACTION, dtype=torch.float32).expand(2, 6).contiguous()
         elif name in ("sphere", "spheres3"):
-            sim, s, a = sphere_config_sim(1 if name == "sphere" else 3, 2)
+            sim, s, a = tool_config_sim([("sphere", (0.03, 0.0, 0.0), c) for c in
+                                         SPHERE_CENTRES[1 if name == "sphere" else 3]], 2)
+        elif name in TOOLS:
+            sim, s, a = tool_config_sim([(name, *TOOLS[name])], 2)
         else:
             sim, s, a = cs.mpm_config_sim(name, 2, torch.device("cpu"), position_control=pc)
         _cut(sim, s, steps)
@@ -256,27 +267,49 @@ SPHERE_CENTRES = {1: [(0.25, 0.08, 0.2)],
                   3: [(0.17, 0.08, 0.2), (0.25, 0.13, 0.25), (0.33, 0.08, 0.3)]}
 
 
-def sphere_scene(sim, make_primitive, n_spheres=1, steps=8):
-    """A von-Mises bar and ``n_spheres`` spheres of radius 0.03
-    (SPHERE_CENTRES) on a grid of at least 16^3 cells of 1/32; returns the
-    state before the simulator's reset."""
+# The other SDFs' tools, each reaching into the same bar (its top at y =
+# 0.11, x from 0.15 to 0.35, z from 0.22 to 0.28), centred on grid node 8
+# (x = z = 0.25) with the sizes on the lattice of 1/32 where a kink sits:
+# the capsule's and the rolling pin's clip at |p_axis| = size[1], the
+# cylinder's rim, the axis of the cylinder and the torus, the chopsticks'
+# midplane between two capsules that straddle the bar.
+TOOLS = {
+    "capsule": ((0.03, 1 / 32, 0.0), (0.25, 0.125, 0.25)),
+    "cylinder": ((1 / 32, 1 / 32, 0.0), (0.25, 0.125, 0.25)),
+    "torus": ((0.04, 0.015, 0.0), (0.25, 0.125, 0.25)),
+    "rolling_pin": ((0.02, 3 / 32, 0.0), (0.25, 0.125, 0.25)),
+    "chopsticks": ((0.015, 1 / 32, 1 / 16), (0.25, 0.09375, 0.25)),
+}
+
+
+def tool_scene(sim, make_primitive, tools, steps=8):
+    """A von-Mises bar and the tools ``tools`` ((sdf name, size, centre)
+    each) on a grid of at least 16^3 cells of 1/32; returns the state
+    before the simulator's reset."""
     from unidom_torch.engine.mpm import VON_MISES
 
     state = sim.add_box(None, size=[0.2, 0.06, 0.06], init_pos=[0.25, 0.08, 0.25],
                         material=VON_MISES, density=1.5)
-    for centre in SPHERE_CENTRES[n_spheres]:
+    for name, size, centre in tools:
         state.primitives.append(make_primitive(steps, friction=0.9, softness=666.0,
-                                               color=[0.7] * 3, size=[0.03, 0.0, 0.0],
+                                               color=[0.7] * 3, size=list(size),
                                                init_pos=list(centre)))
-        sim.register_primitive_sdf("sphere")
+        sim.register_primitive_sdf(name)
     return state
 
 
-def sphere_config_sim(n_spheres, B):
-    """(simulator, perturbed state, action) of ``sphere_scene`` on
-    tests/test_pallas_mpm.py's small grid (8 substeps), v and C perturbed as
-    in ``chip_smoke.mpm_config_sim``, at a yield stress that the von-Mises
-    return map reaches in one macro step."""
+def sphere_scene(sim, make_primitive, n_spheres=1, steps=8):
+    """``tool_scene`` with ``n_spheres`` spheres of radius 0.03
+    (SPHERE_CENTRES)."""
+    return tool_scene(sim, make_primitive, [("sphere", (0.03, 0.0, 0.0), c)
+                                            for c in SPHERE_CENTRES[n_spheres]], steps)
+
+
+def tool_config_sim(tools, B):
+    """(simulator, perturbed state, action) of ``tool_scene`` with ``tools``
+    on tests/test_pallas_mpm.py's small grid (8 substeps), v and C perturbed
+    as in ``chip_smoke.mpm_config_sim``, at a yield stress that the von-Mises
+    return map reaches in one macro step; every tool moves and turns."""
     from unidom_torch.engine.mpm import MPMConf, MPMSimulator
     from unidom_torch.engine.primitives import create_primitive
 
@@ -284,13 +317,22 @@ def sphere_config_sim(n_spheres, B):
     conf = MPMConf(n_grid=32, dt=2e-4, steps=8, E=100.0, nu=0.1, res=(16, 16, 16),
                    ground_friction=0.5, task="test")
     sim = MPMSimulator(conf, B, use_position_control=False, device="cpu")
-    s = sim.reset(sphere_scene(sim, lambda *a, **k: create_primitive(*a, **k, device="cpu"),
-                               n_spheres))
-    a = np.tile(np.asarray([0.4, -0.2, 0.3, 0.05, 0.05, 0.05], np.float32), (B, n_spheres))
+    s = sim.reset(tool_scene(sim, lambda *a, **k: create_primitive(*a, **k, device="cpu"),
+                             tools))
+    a = np.tile(np.asarray([0.4, -0.2, 0.3, 0.05, 0.05, 0.05], np.float32), (B, len(tools)))
     s = s.replace(v=torch.from_numpy(0.2 * rng.standard_normal(s.v.shape, dtype=np.float32)),
                   C=torch.from_numpy(0.5 * rng.standard_normal(s.C.shape, dtype=np.float32)),
                   yield_stress=torch.full_like(s.yield_stress, 0.005))
     return sim, s, torch.from_numpy(a)
+
+
+def tool_big_configs(names):
+    """``big_configs``' entries for the tools ``names`` of TOOLS, each alone
+    over the von-Mises bar."""
+    kwargs = dict(n_grid=32, dt=2e-4, steps=4, E=100.0, nu=0.1, res=(16, 16, 16),
+                  ground_friction=0.5, yield_stress=0.005)
+    return {f"{n}_von_mises": (kwargs, lambda sim, mk, n=n: tool_scene(
+        sim, mk, [(n, *TOOLS[n])], kwargs["steps"]), False) for n in names}
 
 
 def big_configs():
@@ -307,7 +349,7 @@ def big_configs():
         for name, n in (("sphere_von_mises", 1), ("spheres3_von_mises", 3))}}
 
 
-def rehearse_k3(mbk, dtype):
+def rehearse_k3(mbk, dtype, configs=None):
     """K3-bwd (under autograd of K3-fwd with checkpoints) on
     ``big_configs`` (4 substeps) at K = 1, 2 and 3
     (3: a segment of 3 and a short last one of 1); and, for each segment at
@@ -319,7 +361,7 @@ def rehearse_k3(mbk, dtype):
 
     worst = 0.0
     rng = np.random.default_rng(6)
-    for name, (kwargs, scene, pc) in big_configs().items():
+    for name, (kwargs, scene, pc) in (configs or big_configs()).items():
         steps = kwargs["steps"]
         sim = MPMSimulator(MPMConf(**kwargs, task="t"), 1,
                            use_position_control=pc, device="cpu")
@@ -371,19 +413,24 @@ def rehearse_k3(mbk, dtype):
     return worst
 
 
-def rehearse_k2fwd(mk, dtype, steps, clusters):
+def rehearse_k2fwd(mk, dtype, steps, clusters, tools=()):
     """K2-fwd, no gradient, on shape_rope cut to ``steps`` substeps at each
     cluster size (two envs), and on whip_rope (its 67 particles under
-    position control, one env, 96 threads)."""
+    position control, one env, 96 threads); or on each tool of ``tools``
+    (names of TOOLS) over the von-Mises bar (two envs)."""
     from unidom_torch import make_env
 
     worst = 0.0
-    sim, s, a = cs.mpm_config_sim("shape_rope", 2, torch.device("cpu"))
-    env = make_env("whip_rope", batch_size=1, device="cpu")
-    ws = cs.whip_rope_parity_state(env, torch.device("cpu"))
-    wa = torch.tensor([cs.MPM_ACTION], dtype=torch.float32)
-    for name, sim_, s_, a_, cls in (("shape_rope", sim, s, a, clusters),
-                                   ("whip_rope", env.simulator, ws, wa, (None,))):
+    if tools:
+        configs = [(n, *tool_config_sim([(n, *TOOLS[n])], 2), (None,)) for n in tools]
+    else:
+        sim, s, a = cs.mpm_config_sim("shape_rope", 2, torch.device("cpu"))
+        env = make_env("whip_rope", batch_size=1, device="cpu")
+        ws = cs.whip_rope_parity_state(env, torch.device("cpu"))
+        wa = torch.tensor([cs.MPM_ACTION], dtype=torch.float32)
+        configs = [("shape_rope", sim, s, a, clusters),
+                   ("whip_rope", env.simulator, ws, wa, (None,))]
+    for name, sim_, s_, a_, cls in configs:
         _cut(sim_, s_, steps)
         s_, a_ = cs.mpm_cast(s_, dtype), a_.to(dtype)
         ksim = _as(sim_, dtype)
@@ -403,7 +450,7 @@ def rehearse_k2fwd(mk, dtype, steps, clusters):
     return worst
 
 
-def rehearse_k3fwd(mbk, dtype):
+def rehearse_k3fwd(mbk, dtype, configs=None):
     """K3-fwd's rollout, no gradient, on ``big_configs`` (a mixture of
     water, tofu and vegetables in two bowls, as pour_soup; a sigma-clip
     slab; position control; von Mises under one and three spheres), twice: the second call
@@ -413,7 +460,7 @@ def rehearse_k3fwd(mbk, dtype):
 
     worst = 0.0
     rng = np.random.default_rng(6)
-    for name, (kwargs, scene, pc) in big_configs().items():
+    for name, (kwargs, scene, pc) in (configs or big_configs()).items():
         sim = MPMSimulator(MPMConf(**kwargs, task="t"), 2, use_position_control=pc,
                            device="cpu")
         s = sim.reset(scene(sim, lambda *a, **k: create_primitive(*a, **k, device="cpu")))
@@ -443,7 +490,9 @@ def rehearse_k3fwd(mbk, dtype):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", nargs="+", choices=("k2", "k3", "k2fwd", "k3fwd"))
+    ap.add_argument("what", nargs="+", choices=("k2", "k3", "k2fwd", "k3fwd") + tuple(TOOLS),
+                    help="kernels on their configs, or an SDF of TOOLS: K2-bwd, K2-fwd, "
+                         "K3-bwd (K3-seg's record too) and K3-fwd's rollout under it")
     ap.add_argument("--f64", action="store_true", help="every float a double")
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "host_cuda")
     ap.add_argument("--poison", type=float, nargs="?", const=float("nan"), default=None,
@@ -474,6 +523,13 @@ def main():
         worst = max(worst, rehearse_k2fwd(mk, dtype, args.steps, args.fwd_clusters))
     if "k3fwd" in args.what:
         worst = max(worst, rehearse_k3fwd(mbk, dtype))
+    tools = [n for n in args.what if n in TOOLS]
+    if tools:
+        configs = tool_big_configs(tools)
+        worst = max(worst, rehearse_k2(mk, dtype, args.steps, args.clusters,
+                                       [(n, False) for n in tools]),
+                    rehearse_k2fwd(mk, dtype, args.steps, args.fwd_clusters, tools),
+                    rehearse_k3(mbk, dtype, configs), rehearse_k3fwd(mbk, dtype, configs))
     print(f"largest relative error: {worst:.3e}")
 
 

@@ -119,8 +119,10 @@ def test_sdf_and_normal_match_jax_on_lattice_ties(name):
 
 
 def test_sdf_raises_for_unported_shapes():
-    with pytest.raises(KeyError, match="not ported"):
-        sdf.get_sdf("torus")
+    """Every SDF of JAX's registry is ported; a name outside it raises."""
+    assert sdf.get_sdf("torus") is sdf.sdf_torus
+    with pytest.raises(KeyError, match="no SDF 'ellipsoid'"):
+        sdf.get_sdf("ellipsoid")
 
 
 # ---------------------------------------------------------------- quaternions, FK
@@ -395,6 +397,8 @@ def test_kernel_wrapper_raises_on_what_it_does_not_take():
         mpm_step(sim, state.replace(x=state.x.to("meta")), action)
     check_supported(sim)
     sim.sdf_names = ["torus"]
+    check_supported(sim)
+    sim.sdf_names = ["ellipsoid"]
     with pytest.raises(NotImplementedError, match="SDFs"):
         check_supported(sim)
     big = MPMSimulator(MPMConf(**{**SMALL, "res": (128, 64, 128)}), B, device="cpu")

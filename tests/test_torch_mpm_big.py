@@ -183,8 +183,9 @@ def test_kernel_route():
     assert kernel_route(_sim_of(small_grid, MAX_PARTICLES + 1, ["box"])) == "k3"
     with pytest.raises(NotImplementedError, match="at most 4 primitives"):
         kernel_route(_sim_of(PourSoupConf, 7694, ["container"] * 5))
+    assert kernel_route(_sim_of(PourSoupConf, 7694, ["torus"])) == "k3"
     with pytest.raises(NotImplementedError, match="SDFs"):
-        kernel_route(_sim_of(PourSoupConf, 7694, ["torus"]))
+        kernel_route(_sim_of(PourSoupConf, 7694, ["ellipsoid"]))
 
 
 def test_big_kernel_sizes():

@@ -188,8 +188,8 @@ def one_minimize(request):
                                               device="cpu").state_dict())
     params0 = [p.detach().clone() for p in ts.policy.parameters()]
     eps = torch.from_numpy(noise)
-    loss, grad, _ = tmin.debug["loss_grad"](ts, state, eps)
     ts, metrics = tmin(ts, state, eps)
+    loss, grad = tmin.debug["last"]  # the update's own loss and raw gradient
     out = dict(loss=float(loss), grad=[g.numpy() for g in grad],
                clipped=[p.grad.numpy() for p in ts.policy.parameters()],
                params=[p.detach().numpy() for p in ts.policy.parameters()],

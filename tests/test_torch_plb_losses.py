@@ -3,7 +3,10 @@
 SDF, ``TargetLoss.losses`` with and without the contact term (hard and soft),
 the IoU, ``LossTracker``; the sphere's distance, normal and autograd at
 lattice points and at p = 0; and the MPM kernels' packed SDF codes. Inputs
-are made with numpy from a seed and fed to both sides."""
+are made with numpy from a seed and fed to both sides. JAX's
+``TargetLoss`` is built under ``jax.disable_jit()`` (``_jax_target_loss``):
+its jump flood runs op by op, as ``test_target_sdf_jfa_matches_jax`` runs
+it, where the XLA compile of the jitted flood takes ~70 s on the CPU."""
 
 import jax
 import jax.numpy as jnp
@@ -73,6 +76,12 @@ def test_target_sdf_jfa_matches_jax():
     assert (losses.target_sdf_jfa(torch.from_numpy(empty), 1 / INV_DX)[0] == 1000.0).all()
 
 
+def _jax_target_loss(points, **kw):
+    """JAX's ``TargetLoss.from_particles(points, RES, INV_DX, **kw)``, op by op."""
+    with jax.disable_jit():
+        return jlosses.TargetLoss.from_particles(jnp.asarray(points), RES, INV_DX, **kw)
+
+
 def _prim_dists(seed, n_env, n):
     """Two primitives' distances: the first's partly negative (clamped at
     0), the second's all positive."""
@@ -89,7 +98,7 @@ TOL_LOSS = dict(rtol=2e-6, atol=1e-6)
 def test_target_loss_matches_jax(contact):
     target = _cloud(4, n=200, lo=0.3, hi=0.5)
     soft = contact == "soft"
-    jloss = jlosses.TargetLoss.from_particles(jnp.asarray(target), RES, INV_DX, soft_contact=soft)
+    jloss = _jax_target_loss(target, soft_contact=soft)
     tloss = losses.TargetLoss.from_particles(torch.from_numpy(target), RES, INV_DX,
                                              soft_contact=soft)
     np.testing.assert_allclose(tloss.target_sdf.numpy(), _np(jloss.target_sdf), rtol=1e-6,
@@ -106,7 +115,7 @@ def test_target_loss_matches_jax(contact):
 
 def test_loss_tracker_matches_jax():
     target = _cloud(8, n=200, lo=0.3, hi=0.5)
-    jloss = jlosses.TargetLoss.from_particles(jnp.asarray(target), RES, INV_DX)
+    jloss = _jax_target_loss(target)
     tloss = losses.TargetLoss.from_particles(torch.from_numpy(target), RES, INV_DX)
     steps = [np.stack([_cloud(s, n=200), _cloud(s + 1, n=200)]) for s in (9, 11, 13)]
     jtr = jlosses.LossTracker.init(jax.vmap(jloss.losses)(jnp.asarray(steps[0])))
@@ -181,25 +190,37 @@ def test_sphere_autograd_matches_jax():
 # ---------------------------------------------------------------- SDF codes
 
 def test_sdf_kinds_pack_four_bits_per_primitive():
-    names = ["sphere", "box", "container", "sphere"]
-    packed = pack_sdf_kinds(names)
-    decoded = [(packed >> (SDF_KIND_BITS * i)) & (2**SDF_KIND_BITS - 1) for i in range(4)]
-    assert decoded == [SDF_KINDS[n] for n in names] == [2, 0, 1, 2]
+    """All eight SDFs have a code (every one of ops/sdf.py's), and four
+    primitives' codes decode from the packed word in order."""
+    assert set(SDF_KINDS) == set(sdf.SDF_REGISTRY) == set(jsdf.SDF_REGISTRY)
+    assert sorted(SDF_KINDS.values()) == list(range(8))
     assert max(SDF_KINDS.values()) < 2**SDF_KIND_BITS
+    names = sorted(SDF_KINDS, key=SDF_KINDS.get)
+    for group in (names[:4], names[4:], ["sphere", "box", "container", "sphere"]):
+        packed = pack_sdf_kinds(group)
+        decoded = [(packed >> (SDF_KIND_BITS * i)) & (2**SDF_KIND_BITS - 1)
+                   for i in range(len(group))]
+        assert decoded == [SDF_KINDS[n] for n in group]
+    assert pack_sdf_kinds(["chopsticks", "rolling_pin"]) == 7 + (6 << SDF_KIND_BITS)
     with pytest.raises(NotImplementedError, match="SDFs"):
-        pack_sdf_kinds(["sphere", "capsule"])
+        pack_sdf_kinds(["sphere", "ellipsoid"])
     with pytest.raises(NotImplementedError, match="at most 4 primitives"):
         pack_sdf_kinds(["sphere"] * 5)
 
 
 def test_kernels_refuse_the_unported_plb_sdfs():
+    """The kernels take every SDF of JAX's registry, and refuse a name they
+    do not know (the card never falls back to the plain step)."""
     from unidom_torch.engine.mpm import MPMConf, MPMSimulator
 
     sim = MPMSimulator(MPMConf(res=(16, 16, 16)), 1, device="cpu")
     sim.n_particles = 100
     sim.sdf_names = ["sphere", "sphere", "sphere"]
     check_supported(sim)
-    for name in ("capsule", "rolling_pin", "chopsticks"):
+    for name in ("capsule", "rolling_pin", "chopsticks", "cylinder", "torus"):
+        sim.sdf_names = ["sphere", name]
+        check_supported(sim)
+    for name in ("ellipsoid", "Capsule"):
         sim.sdf_names = ["sphere", name]
         with pytest.raises(NotImplementedError, match="SDFs"):
             check_supported(sim)

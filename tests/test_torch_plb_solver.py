@@ -48,7 +48,8 @@ def envs():
     tenv = _small_move(B)
     jenv = jplb.PlbSceneEnv("plb_move", B, conf=JSMALL, max_steps=4)
     _, tstate = tenv.reset(SEED)
-    _, jstate = jenv.reset(jax.random.PRNGKey(SEED))
+    with jax.disable_jit():
+        _, jstate = jenv.reset(jax.random.PRNGKey(SEED))
     # the first actions: the sphere pushed into the rope's end, along it
     a0 = np.random.default_rng(1).normal(0.0, 0.3, (B, H, 3)).astype(np.float32)
     a0[..., 0] -= 0.6

@@ -203,11 +203,12 @@ def test_minimize_matches_jax():
                                               device="cpu").state_dict())
     params0 = [p.detach().clone() for p in ts.policy.parameters()]
     eps = torch.from_numpy(noise)
-    loss, grad, _ = tmin.debug["loss_grad"](ts, state, eps)
     _, tmin64, _, _ = apg.build_apg(_f64_env(tenv), 1, LR, MAX_NORM, device="cpu")
     ts64 = copy.copy(ts)
     ts64.policy = copy.deepcopy(ts.policy).double()
     loss64, grad64, _ = tmin64.debug["loss_grad"](ts64, _f64(state), eps.double())
+    ts, metrics = tmin(ts, state, eps)
+    loss, grad = tmin.debug["last"]  # the update's own loss and raw gradient
     _gate("loss", float(loss), jloss, float(loss64), FLOOR["loss"])
     for g, r, r64 in zip(grad, _leaves(jgrad), grad64):
         r64 = r64.numpy()
@@ -215,7 +216,6 @@ def test_minimize_matches_jax():
         scale = np.linalg.norm(r64) / np.sqrt(r64.size)  # the RMS gate relative to the leaf's
         _gate("grad", g.numpy() / scale, r / scale, r64 / scale, FLOOR["grad"])
 
-    ts, metrics = tmin(ts, state, eps)
     clipped = [p.grad for p in ts.policy.parameters()]
     assert np.isclose(float(metrics["grad_norm"]),
                       np.sqrt(sum(float((g.double() ** 2).sum()) for g in grad)), rtol=1e-6)

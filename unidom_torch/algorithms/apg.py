@@ -159,7 +159,8 @@ def build_apg(
     def minimize(ts, state, noise=None):
         """One APG update from the first state ``state``; updates ``ts`` in
         place and returns (ts, metrics)."""
-        _, grad_raw, (rewards, states) = loss_grad(ts, state, noise)
+        loss, grad_raw, (rewards, states) = loss_grad(ts, state, noise)
+        minimize.debug["last"] = (loss, grad_raw)
         grad_raw = nan_to_num_tree(grad_raw)
         grad = global_norm_clip(grad_raw, max_gradient_norm)
         # the all-reduce of the clipped gradient is the identity on one device
@@ -187,7 +188,8 @@ def build_apg(
             }
         return ts, metrics
 
-    # test hook: the pieces needed to recompute an update by hand
+    # test hook: the pieces needed to recompute an update by hand, and the
+    # last update's loss and raw gradient (``last``: (loss, grads))
     minimize.debug = {"loss_grad": loss_grad, "learning_rate_at": learning_rate_at}
 
     def reset_batch(generator=None):

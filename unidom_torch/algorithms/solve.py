@@ -5,8 +5,8 @@
         --batch_size 16 --horizon 10 --iters 4
 
 ``action`` is gradient trajectory optimisation (``TrajectorySolver``),
-``apg`` the APG trainer (``algorithms/apg.train``). ``nn`` (the policy
-optimised through the simulator) and the RL baselines ``ppo``, ``sac``,
+``nn`` a policy optimised through the simulator (``SolverNN``), ``apg`` the
+APG trainer (``algorithms/apg.train``). The RL baselines ``ppo``, ``sac``,
 ``discor`` and ``td3`` are not ported yet and raise. Runs on the card
 unless ``--device cpu``.
 """
@@ -16,8 +16,8 @@ import argparse
 import torch
 
 # the arms not ported yet, and the ROADMAP step that ports them
-NOT_PORTED = {"nn": "Step 13 (SolverNN)", "ppo": "Step 14 (RL)", "sac": "Step 14 (RL)",
-              "discor": "Step 14 (RL)", "td3": "Step 14 (RL)"}
+NOT_PORTED = {"ppo": "Step 14 (RL)", "sac": "Step 14 (RL)", "discor": "Step 14 (RL)",
+              "td3": "Step 14 (RL)"}
 
 
 def main(argv=None):
@@ -42,11 +42,17 @@ def main(argv=None):
         return train(env_name=a.env_name, episode_length=a.horizon, num_envs=a.batch_size,
                      max_it=a.iters, seed=a.seed, device=a.device)
 
-    from unidom_torch.algorithms.solver import TrajectorySolver
+    from unidom_torch.algorithms.solver import SolverNN, TrajectorySolver
     from unidom_torch.envs.registration import env_functions
 
     env = env_functions[a.env_name](batch_size=a.batch_size, seed=a.seed, device=a.device)
     _, state = env.reset(torch.Generator().manual_seed(a.seed))
+    if a.algo == "nn":
+        solver = SolverNN(env, a.horizon, lr=a.lr or 1e-3,
+                          generator=torch.Generator().manual_seed(a.seed))
+        policy, history = solver.solve(state, n_iters=a.iters, verbose=True)
+        print("final reward:", history[-1])
+        return policy, history
     solver = TrajectorySolver(env, a.horizon, lr=a.lr or 0.02)
     actions, reward, history = solver.solve(state, n_iters=a.iters, verbose=True)
     print("final reward:", reward.cpu().numpy())

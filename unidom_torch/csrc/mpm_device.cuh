@@ -152,8 +152,83 @@ __device__ float sdf_sphere(const float* size, const float* p, float* grad) {
   return len - size[0];
 }
 
+// d max(lhs, rhs) / d lhs, as jnp.maximum and torch.maximum take it: 1,
+// 1/2 at a tie, 0 (so d min(x, y) / dx = tie_half(y, x))
+__device__ __forceinline__ float tie_half(float lhs, float rhs) {
+  return lhs > rhs ? 1.f : (lhs == rhs ? 0.5f : 0.f);
+}
+
+// a capsule along axis A (1: the capsule, vertical; 0: the rolling pin):
+// radius size[0], half-length size[1]. q = p with q[A] = p[A] less its clip
+// to [-size[1], size[1]]; the gradient q / |q| with q[A]'s entry times
+// 1 - clip' (clip' = 1 inside, 1/2 at a bound, 0 outside)
+template <int A>
+__device__ float sdf_capsule_axis(const float* size, const float* p, float* grad) {
+  const float s1 = size[1];
+  const float y = fmaxf(p[A], -s1);
+  float q[3] = {p[0], p[1], p[2]};
+  q[A] = p[A] - fminf(y, s1);
+  const float len = sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + 1e-12f);
+  if (grad) {
+    for (int i = 0; i < 3; ++i) grad[i] = q[i] / len;
+    grad[A] = grad[A] * (1.f - tie_half(p[A], -s1) * tie_half(s1, y));
+  }
+  return len - size[0];
+}
+
+// vertical cylinder: radius size[0], half-height size[1]; d = (|p_xz| -
+// size[0], |p_y| - size[1]), the distance |max(d, 0)| + min(max(d), 0)
+__device__ float sdf_cylinder(const float* size, const float* p, float* grad) {
+  const float lxz = sqrtf(p[0] * p[0] + p[2] * p[2] + 1e-12f);
+  const float d[2] = {lxz - size[0], fabsf(p[1]) - size[1]};
+  const float dc[2] = {fmaxf(d[0], 0.f), fmaxf(d[1], 0.f)};
+  const float lo = sqrtf(dc[0] * dc[0] + dc[1] * dc[1] + 1e-12f);
+  const float m = fmaxf(d[0], d[1]);
+  if (grad) {
+    const float cmin = tie_half(0.f, m), cnt = (d[0] == m) + (d[1] == m);
+    float gd[2];
+    for (int i = 0; i < 2; ++i)
+      gd[i] = dc[i] / lo * tie_half(d[i], 0.f) + cmin * (d[i] == m ? 1.f : 0.f) / cnt;
+    const float gxz = gd[0] / lxz;
+    grad[0] = gxz * p[0];
+    grad[1] = gd[1] * abs_grad(p[1]);
+    grad[2] = gxz * p[2];
+  }
+  return lo + fminf(m, 0.f);
+}
+
+// torus in the xz-plane: major radius size[0], minor radius size[1]
+__device__ float sdf_torus(const float* size, const float* p, float* grad) {
+  const float lxz = sqrtf(p[0] * p[0] + p[2] * p[2] + 1e-12f);
+  const float q0 = lxz - size[0], q1 = p[1];
+  const float lq = sqrtf(q0 * q0 + q1 * q1 + 1e-12f);
+  if (grad) {
+    const float gxz = q0 / lq / lxz;
+    grad[0] = gxz * p[0];
+    grad[1] = q1 / lq;
+    grad[2] = gxz * p[2];
+  }
+  return lq - size[1];
+}
+
+// chopsticks: the nearer of two vertical capsules at x = -size[2] and
+// +size[2]; minimum's derivative 1, 1/2 at a tie (the midplane x = 0,
+// where the two gradients' x-components cancel), 0
+__device__ float sdf_chopsticks(const float* size, const float* p, float* grad) {
+  const float pa[3] = {p[0] - size[2], p[1], p[2]}, pb[3] = {p[0] + size[2], p[1], p[2]};
+  float ga[3], gb[3];
+  const float ca = sdf_capsule_axis<1>(size, pa, grad ? ga : nullptr);
+  const float cb = sdf_capsule_axis<1>(size, pb, grad ? gb : nullptr);
+  if (grad) {
+    const float wa = tie_half(cb, ca), wb = tie_half(ca, cb);
+    for (int i = 0; i < 3; ++i) grad[i] = wa * ga[i] + wb * gb[i];
+  }
+  return fminf(ca, cb);
+}
+
 // the SDF of kind `kind` (SDF_KINDS in ops/cuda/mpm_kernel.py: 0 box,
-// 1 container, 2 sphere; Python refuses any other)
+// 1 container, 2 sphere, 3 capsule, 4 cylinder, 5 torus, 6 rolling pin,
+// 7 chopsticks; Python refuses any other)
 __device__ __forceinline__ float sdf_eval(int kind, const float* size, const float* p,
                                           float* grad) {
   switch (kind) {
@@ -161,6 +236,16 @@ __device__ __forceinline__ float sdf_eval(int kind, const float* size, const flo
       return sdf_container(size, p, grad);
     case 2:
       return sdf_sphere(size, p, grad);
+    case 3:
+      return sdf_capsule_axis<1>(size, p, grad);
+    case 4:
+      return sdf_cylinder(size, p, grad);
+    case 5:
+      return sdf_torus(size, p, grad);
+    case 6:
+      return sdf_capsule_axis<0>(size, p, grad);
+    case 7:
+      return sdf_chopsticks(size, p, grad);
     default:
       return sdf_box(size, p, grad);
   }
@@ -1106,6 +1191,111 @@ __device__ void sdf_sphere_bwd(const float* size, const float* p, float ddist, c
   dsize[0] -= ddist;
 }
 
+// The same for a capsule along axis A (sdf_capsule_axis; ops/sdf.py
+// _capsule_q, _grad_capsule_axis): the gradient u = q / |q| with u[A] times
+// the constant 1 - clip'; q[A] = p[A] - min(max(p[A], -size[1]), size[1]),
+// whose max and min give 1/2 to each side at a tie.
+template <int A>
+__device__ void sdf_capsule_axis_bwd(const float* size, const float* p, float ddist,
+                                     const float* dg, float* dp, float* dsize) {
+  const float s1 = size[1];
+  const float y = fmaxf(p[A], -s1);
+  const float mx = tie_half(p[A], -s1), mn = tie_half(s1, y);
+  float q[3] = {p[0], p[1], p[2]};
+  q[A] = p[A] - fminf(y, s1);
+  const float L = sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + 1e-12f);
+  float du[3] = {dg[0], dg[1], dg[2]};
+  du[A] = du[A] * (1.f - mx * mn);
+  const float s = du[0] * q[0] + du[1] * q[1] + du[2] * q[2];
+  float dq[3];
+  for (int i = 0; i < 3; ++i) {
+    dq[i] = du[i] / L - q[i] * s / (L * L * L) + ddist * q[i] / L;
+    dp[i] += dq[i];
+  }
+  dsize[0] -= ddist;
+  const float dc = -dq[A];
+  const float dy = dc * mn;
+  dsize[1] += dc * (1.f - mn);  // the upper bound, size[1]
+  dp[A] += dy * mx;
+  dsize[1] -= dy * (1.f - mx);  // the lower bound, -size[1]
+}
+
+// The same for the cylinder (sdf_cylinder, _grad_cylinder): the gradient's
+// tie factors (max's with 0, the shares of the tied maxima, min's with 0)
+// are constants.
+__device__ void sdf_cylinder_bwd(const float* size, const float* p, float ddist, const float* dg,
+                                 float* dp, float* dsize) {
+  const float lxz = sqrtf(p[0] * p[0] + p[2] * p[2] + 1e-12f);
+  const float d[2] = {lxz - size[0], fabsf(p[1]) - size[1]};
+  const float dc[2] = {fmaxf(d[0], 0.f), fmaxf(d[1], 0.f)};
+  const float h[2] = {tie_half(d[0], 0.f), tie_half(d[1], 0.f)};
+  const float lo = sqrtf(dc[0] * dc[0] + dc[1] * dc[1] + 1e-12f);
+  const float m = fmaxf(d[0], d[1]);
+  const float cmin = tie_half(0.f, m), cnt = (d[0] == m) + (d[1] == m);
+  const float share[2] = {d[0] == m ? cmin / cnt : 0.f, d[1] == m ? cmin / cnt : 0.f};
+  const float gd0 = dc[0] / lo * h[0] + share[0];
+  // the gradient (gd0 / lxz p0, gd1 abs'(p1), gd0 / lxz p2)
+  const float gxz = gd0 / lxz, dgxz = dg[0] * p[0] + dg[2] * p[2];
+  dp[0] += dg[0] * gxz;
+  dp[2] += dg[2] * gxz;
+  float dlxz = -dgxz * gd0 / (lxz * lxz);
+  const float dv[2] = {dgxz / lxz * h[0], dg[1] * abs_grad(p[1]) * h[1]};
+  const float s = dv[0] * dc[0] + dv[1] * dc[1];
+  float dd[2];
+  for (int i = 0; i < 2; ++i) {
+    const float ddc = dv[i] / lo - dc[i] * s / (lo * lo * lo) + ddist * dc[i] / lo;
+    dd[i] = ddc * h[i] + ddist * share[i];
+  }
+  dlxz += dd[0];
+  dsize[0] -= dd[0];
+  dp[1] += dd[1] * abs_grad(p[1]);
+  dsize[1] -= dd[1];
+  dp[0] += dlxz * p[0] / lxz;
+  dp[2] += dlxz * p[2] / lxz;
+}
+
+// The same for the torus (sdf_torus, _grad_torus).
+__device__ void sdf_torus_bwd(const float* size, const float* p, float ddist, const float* dg,
+                              float* dp, float* dsize) {
+  const float lxz = sqrtf(p[0] * p[0] + p[2] * p[2] + 1e-12f);
+  const float q[2] = {lxz - size[0], p[1]};
+  const float lq = sqrtf(q[0] * q[0] + q[1] * q[1] + 1e-12f);
+  const float u0 = q[0] / lq, gxz = u0 / lxz, dgxz = dg[0] * p[0] + dg[2] * p[2];
+  // the gradient (u0 / lxz p0, u1, u0 / lxz p2), u = q / |q|
+  dp[0] += dg[0] * gxz;
+  dp[2] += dg[2] * gxz;
+  float dlxz = -dgxz * u0 / (lxz * lxz);
+  const float du[2] = {dgxz / lxz, dg[1]};
+  const float s = du[0] * q[0] + du[1] * q[1];
+  float dq[2];
+  for (int i = 0; i < 2; ++i) dq[i] = du[i] / lq - q[i] * s / (lq * lq * lq) + ddist * q[i] / lq;
+  dsize[1] -= ddist;
+  dlxz += dq[0];
+  dsize[0] -= dq[0];
+  dp[1] += dq[1];
+  dp[0] += dlxz * p[0] / lxz;
+  dp[2] += dlxz * p[2] / lxz;
+}
+
+// The same for the chopsticks (sdf_chopsticks, _grad_chopsticks): ddist and
+// dg reach each capsule through the minimum's 1, 1/2, 0; the offset size[2]
+// takes the x-cotangents of the two capsules' points, p_x - size[2] and
+// p_x + size[2].
+__device__ void sdf_chopsticks_bwd(const float* size, const float* p, float ddist,
+                                   const float* dg, float* dp, float* dsize) {
+  const float pa[3] = {p[0] - size[2], p[1], p[2]}, pb[3] = {p[0] + size[2], p[1], p[2]};
+  const float ca = sdf_capsule_axis<1>(size, pa, nullptr);
+  const float cb = sdf_capsule_axis<1>(size, pb, nullptr);
+  const float wa = tie_half(cb, ca), wb = tie_half(ca, cb);
+  const float dga[3] = {dg[0] * wa, dg[1] * wa, dg[2] * wa};
+  const float dgb[3] = {dg[0] * wb, dg[1] * wb, dg[2] * wb};
+  float dpa[3] = {0.f, 0.f, 0.f}, dpb[3] = {0.f, 0.f, 0.f};
+  sdf_capsule_axis_bwd<1>(size, pa, ddist * wa, dga, dpa, dsize);
+  sdf_capsule_axis_bwd<1>(size, pb, ddist * wb, dgb, dpb, dsize);
+  for (int i = 0; i < 3; ++i) dp[i] += dpa[i] + dpb[i];
+  dsize[2] += dpb[0] - dpa[0];
+}
+
 // Adjoint of collide_fwd for primitive ip: v is the node's velocity before
 // it, dv the cotangent of the velocity after it on entry and before it on
 // exit; the primitive's cotangents go to acc.add(ip * NPA + slot, value).
@@ -1209,6 +1399,21 @@ __device__ void collide_bwd(const Prim& pr, int ip, const float* gp, const float
       break;
     case 2:
       sdf_sphere_bwd(pr.size, local, ddist, dgl, dls, dsize);
+      break;
+    case 3:
+      sdf_capsule_axis_bwd<1>(pr.size, local, ddist, dgl, dls, dsize);
+      break;
+    case 4:
+      sdf_cylinder_bwd(pr.size, local, ddist, dgl, dls, dsize);
+      break;
+    case 5:
+      sdf_torus_bwd(pr.size, local, ddist, dgl, dls, dsize);
+      break;
+    case 6:
+      sdf_capsule_axis_bwd<0>(pr.size, local, ddist, dgl, dls, dsize);
+      break;
+    case 7:
+      sdf_chopsticks_bwd(pr.size, local, ddist, dgl, dls, dsize);
       break;
     default:
       sdf_box_bwd(pr.size, local, ddist, dgl, dls, dsize);

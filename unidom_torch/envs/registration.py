@@ -1,6 +1,6 @@
 """Environment registry (name -> constructor): every DaXBench env of the JAX
-package, with its aliases (push_rope, push_rope_hard), and the plb scenes
-whose manipulators are spheres (``envs/plb_tasks.py``)."""
+package, with its aliases (push_rope, push_rope_hard), and the ten plb
+scenes (``envs/plb_tasks.py``)."""
 
 from unidom_torch.envs.cloth_tasks import (
     FoldCloth1Env,

@@ -49,9 +49,11 @@ SOURCE = "mpm_step.cu"
 MAX_PARTICLES = 1024
 MAX_CELLS = 196608  # the fused TPU kernel's own ceiling (cells x 32 bytes <= 6 MB)
 MAX_PRIMITIVES = 4
-# the SDFs the kernels evaluate, by the code the device switches on; four
-# bits per primitive in the packed word (pack_sdf_kinds)
-SDF_KINDS = {"box": 0, "container": 1, "sphere": 2}
+# the SDFs the kernels evaluate (all of ops/sdf.py's), by the code the
+# device switches on; four bits per primitive in the packed word
+# (pack_sdf_kinds)
+SDF_KINDS = {"box": 0, "container": 1, "sphere": 2, "capsule": 3, "cylinder": 4, "torus": 5,
+             "rolling_pin": 6, "chopsticks": 7}
 SDF_KIND_BITS = 4
 PRIM_FRAME_COLS = 12  # position (3), rotation (4), size (3), friction, softness
 N_COMP = 25  # x 3, v 3, C 9, F 9, J 1

@@ -1,5 +1,5 @@
-"""Carry a policy, an observation normalizer and an MPM state over from the
-JAX package.
+"""Carry a policy (new, or into an existing one such as ``SolverNN``'s), an
+observation normalizer and an MPM state over from the JAX package.
 
 The inputs are the flax parameter tree, the normalizer's (count, mean, m2)
 and the MPM state as numpy arrays, e.g. from ``jax.device_get``, so this
@@ -22,9 +22,22 @@ def policy_from_jax(params_np, device="cuda") -> PolicyMLP:
     kernels = [np.asarray(dense[f"dense_{i}"]["kernel"]) for i in range(len(dense))]
     sizes = [k.shape[0] for k in kernels] + [kernels[-1].shape[1]]
     policy = PolicyMLP(sizes[0], sizes[-1], hidden=tuple(sizes[1:-1]), device=device)
+    return copy_policy_from_jax(policy, params_np)
+
+
+def copy_policy_from_jax(policy: PolicyMLP, params_np) -> PolicyMLP:
+    """``policy`` (e.g. ``SolverNN.policy``) with JAX's parameter tree copied
+    into it in place; the layer sizes must agree."""
+    dense = params_np["params"]
+    if len(dense) != len(policy.layers):
+        raise ValueError(f"{len(dense)} JAX layers for a policy of {len(policy.layers)}")
     with torch.no_grad():
         for i, layer in enumerate(policy.layers):
-            layer.weight.copy_(torch.tensor(kernels[i].T))
+            kernel = np.asarray(dense[f"dense_{i}"]["kernel"])
+            if kernel.T.shape != tuple(layer.weight.shape):
+                raise ValueError(f"layer {i}: JAX's kernel {kernel.shape}, the policy's weight "
+                                 f"{tuple(layer.weight.shape)}")
+            layer.weight.copy_(torch.tensor(kernel.T))
             layer.bias.copy_(torch.tensor(np.asarray(dense[f"dense_{i}"]["bias"])))
     return policy
 
