@@ -69,8 +69,8 @@ collision, K3-fwd with checkpoints, K3-seg and K3-bwd:
     the checkpointing forward's P2G;
   - one shape_elasto_plastic update (``minimize``, 16 envs, ep_len 3: 60
     K3-fwd, 60 K3-bwd and 240 K3-seg phases), its env-steps/s, peak memory
-    and profile, and one update's policy gradient (ep_len 1, the push's
-    path in 5 simulator calls, not the env's 20) against the plain step's;
+    and profile, and one update's policy gradient (ep_len 1, the env's
+    20-call push) against the plain step's;
   - one shape_rope ``train`` iteration at 64 envs, its resets through
     ``host_reset`` (2 pushes of 30 K2-fwd calls, no K2-bwd);
   - K3-bwd's times at shape_elasto_plastic 16 and pour_soup 32 envs,
@@ -119,7 +119,7 @@ printed and must be at least half):
     plb_move (one sphere), plb_triplemove (three), plb_writer,
     plb_rollingpin and plb_chopsticks (the rollout's and, at K = 7, the
     checkpointing one) under the per-env median gate with the witness, and
-    K3-bwd's VJP of the last three at K = 1 and 7 (K3-seg in it), every
+    K3-bwd's VJP of the last four at K = 1 and 7 (K3-seg in it), every
     input cotangent gated, each tool's size cotangent not 0 (the
     chopsticks' offset too);
   - [plb-sdf]: plb_torus with its spheres swapped for a cylinder and a
@@ -139,7 +139,22 @@ printed and must be at least half):
     iterations, and ``generate_experts`` on plb_writer (2 instances,
     horizon 2, 2 solver iterations, the yield stress drawn per env), their
     launches counted, seconds per iteration and peak memory.
+``dist_phase`` ([dist]) trains over ranks (``unidom_torch/parallel``):
+fold_cloth3 at 1024 envs (K1), whip_rope at 1024 (K2) and
+shape_elasto_plastic at 16 (K3), one update each on two ranks sharing the
+card through gloo, each rank's parameters equal to the other's bit for bit
+and held to the serial recompute (per shard the same noise, nan_to_num, the
+local clip, then the mean and Adam), each rank's launches counted, beside
+one unsharded update's env-steps/s; and the trainer's CLI at world size 1
+over NCCL (``--num_processes 1 --process_id 0 --coordinator``) for one
+iteration. NCCL at world size > 1 needs a card per rank.
 The counters show that each path launches its own kernels and no other.
+The plain references that need no gradient and repeat one step (the cloth
+slice's replays and free-running episode, shape_elasto_plastic's 20-call
+macro step) replay a CUDA graph of it (``GraphedStep``: the same kernels
+without the host's dispatch of each); the float32 plain VJPs of a gate's
+draws and its witness run as one VJP of their envs side by side
+(``tiled_vjp``).
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
 
@@ -487,6 +502,54 @@ def plain_sim(sim, dtype):
     out.nbr_valid = sim.nbr_valid.to(dtype)
     out.step_batch = out._robot_step_plain
     return out
+
+
+class GraphedStep:
+    """``fn(state, action)``, a plain step of fixed shapes that needs no
+    gradient, captured in a CUDA graph at its first call and replayed at
+    every call after: the inputs copied into the graph's, the outputs
+    cloned out. The same kernels on the same inputs, without the host's
+    dispatch of each (some 8,500 launches per cloth robot step)."""
+
+    def __init__(self, fn):
+        self.fn, self.graph = fn, None
+
+    def __call__(self, state, action):
+        import torch
+
+        from unidom_torch.ops.gradops import tree_flatten
+
+        leaves, rebuild = tree_flatten(state)
+        if self.graph is None:
+            self.inputs = [t.clone() for t in leaves + [action]]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.no_grad(), torch.cuda.stream(side):
+                self.fn(rebuild(self.inputs[:-1]), self.inputs[-1])  # warm up
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.no_grad(), torch.cuda.graph(self.graph):
+                out = self.fn(rebuild(self.inputs[:-1]), self.inputs[-1])
+            self.outputs, self.rebuild_out = tree_flatten(out)
+        for dst, src in zip(self.inputs, leaves + [action]):
+            dst.copy_(src)
+        self.graph.replay()
+        return self.rebuild_out([t.clone() for t in self.outputs])
+
+
+def graphed_plain_copy(env, dtype):
+    """``plain_copy`` whose robot step runs through a CUDA graph
+    (``GraphedStep``): for references that need no gradient."""
+    out = plain_copy(env, dtype)
+    out.simulator.step_batch = GraphedStep(out.simulator._robot_step_plain)
+    return out
+
+
+def graphed(plain_env):
+    """An MPM ``mpm_plain_env`` copy whose macro step runs through a CUDA
+    graph (``GraphedStep``): for references that need no gradient."""
+    plain_env.simulator.step_batch = GraphedStep(plain_env.simulator._step_plain)
+    return plain_env
 
 
 def plain_copy(env, dtype):
@@ -1112,6 +1175,7 @@ def mpm_phases(dev):
 
     # ---- 12. K2-fwd on configurations whip_rope does not exercise
     t_phase = time.perf_counter()
+    plain_refs = {}  # shape_rope's plain steps, which [k2-design] holds K2-fwd to again
     for name, B in (("shape_rope", B_SHAPE_ROPE), ("water", B_MPM_CONFIG),
                     ("von_mises", B_MPM_CONFIG), ("bowl_water", B_MPM_CONFIG)):
         csim, cs, ca = mpm_config_sim(name, B, dev)
@@ -1119,6 +1183,8 @@ def mpm_phases(dev):
             ck = mpm_step(csim, cs, ca)
             cp = csim._step_plain(cs, ca)
             c64 = csim._step_plain(mpm_cast(cs, torch.float64), ca.double())
+        if name == "shape_rope":
+            plain_refs[(name, B)] = (cs, ca, cp, c64)
         err, _ = mpm_gate(f"mpm-config {name}", ck, cp, c64)
         parity_err = max(parity_err, err)
         log(f"[mpm-config] {name}: B={B}, P={csim.n_particles}, res {csim.conf.res}, "
@@ -1258,7 +1324,7 @@ def mpm_phases(dev):
         "bound_by": bound_1024[1],
         "library_ms": None,
     }
-    return entry, k1, k3
+    return entry, k1, k3, plain_refs
 
 
 def mpm_slice_envs(state, stop, start=0):
@@ -1450,8 +1516,12 @@ def mpm_grad_phases(dev):
     draws_k = {K: Draws([head(grads_k[K])] + [
         head(mpm_vjp(lambda s, a: mpm_step(sim, s, a, ckpt_stride=K), state, action, cot))
         for _ in range(PARITY_DRAWS - 1)]) for K in (1, MPM_STRIDE)}
-    g32 = Draws(mpm_vjp(psim._step_plain, hs, action[:B_MPM_GRAD], head(cot))
-                for _ in range(PARITY_DRAWS))
+    # the float32 plain draws and the witness (mu = lamda = 0) side by side
+    # in one VJP (tiled_vjp)
+    ws = hs.replace(mu=torch.zeros_like(hs.mu), lamda=torch.zeros_like(hs.lamda))
+    runs = tiled_vjp(psim._step_plain, [hs] * PARITY_DRAWS + [ws], action[:B_MPM_GRAD],
+                     head(cot))
+    g32, wit = Draws(runs[:PARITY_DRAWS]), runs[PARITY_DRAWS]
     g64 = mpm_vjp(psim._step_plain, mpm_cast(hs, torch.float64), action[:B_MPM_GRAD].double(),
                   [c.double() for c in head(cot)])
     bwd_err, gates = 0.0, {}
@@ -1463,9 +1533,6 @@ def mpm_grad_phases(dev):
         f"{B_MAIN} envs: " + ", ".join(
             f"{n} {(a - b).abs().max().item():.3e}"
             for n, a, b in zip(MPM_VJP_INPUTS, grads_k[1], grads_k[MPM_STRIDE])))
-    wit = mpm_vjp(psim._step_plain, hs.replace(mu=torch.zeros_like(hs.mu),
-                                                 lamda=torch.zeros_like(hs.lamda)),
-                  action[:B_MPM_GRAD], head(cot))
     ratios = {}
     for name, w, r in zip(MPM_VJP_INPUTS, wit, g64):
         if name in gates:
@@ -2138,8 +2205,10 @@ def big_phases(dev):
     with torch.no_grad():
         _, r_k, _, _ = elasto.step_diff(eacts[0], e0)
         head, a_head = mpm_slice_envs(e0, B_ELASTO_PLAIN), eacts[0][:B_ELASTO_PLAIN]
-        _, r_p, _, _ = big_plain_env(elasto, torch.float32, B_ELASTO_PLAIN).step_diff(a_head, head)
-        _, r_64, _, _ = big_plain_env(elasto, torch.float64, B_ELASTO_PLAIN).step_diff(
+        # the plain steps' 20 calls replay a CUDA graph of the first
+        _, r_p, _, _ = graphed(big_plain_env(elasto, torch.float32, B_ELASTO_PLAIN)).step_diff(
+            a_head, head)
+        _, r_64, _, _ = graphed(big_plain_env(elasto, torch.float64, B_ELASTO_PLAIN)).step_diff(
             a_head.double(), mpm_cast(head, torch.float64))
     e_k, e_p = (r_k[:B_ELASTO_PLAIN].double() - r_64).abs(), (r_p.double() - r_64).abs()
     log(f"[big-rollout] shape_elasto_plastic macro step 0 ({elasto.PUSH_SUBSTEPS} simulator "
@@ -2257,12 +2326,9 @@ ELASTO_STRIDE = 4  # the rule's K for shape_elasto_plastic at 16 envs (16 subste
 BIG_CONFIG_STRIDE = 3  # a stride above 1 on the P > 1024 config (8 substeps)
 B_BIG_GRAD_PLAIN = 16
 ELASTO_SEGMENT = 2
-# shape_elasto_plastic's policy gradient: ep_len 1 at 2 envs, the push's
-# path in POLICY_GRAD_CALLS simulator calls, each moving the tool 4x as far
-# as one of the env's 20. Through the env's own 20 calls the gate passed
-# too, but the script then took 1156.3 s of its 1200 (H100, PERF.md).
+# shape_elasto_plastic's policy gradient: ep_len 1 at 2 envs, through the
+# env's own push (PUSH_SUBSTEPS simulator calls)
 B_POLICY_GRAD = 2
-POLICY_GRAD_CALLS = 5
 B_ROPE_TRAIN = 64
 ROPE_EVAL_ENVS = 8
 SOUP_BWD_TIME_B = (B_SOUP,)  # (8 was cut for time)
@@ -2366,9 +2432,11 @@ def grad_gate(what, sim, state, action, steps, n_plain, zero, witness, draws=1):
     VJPs (scatter transfer, ``checkpointed``), the inputs in ``zero`` (and
     any whose float64 cotangent is 0) 0 on both; with ``draws`` > 1, each
     side's median over that many runs of the VJP (Draws); the float32 plain
-    VJP of ``witness(state, sim)`` (a (state, plain step) pair) must miss
-    the gate by WITNESS_MARGIN. Returns (the largest |kernel - plain|, the
-    kernels' cotangents by K, of the first draw)."""
+    VJP of ``witness(state, sim)`` (a state and a plain step, or None for
+    the plain step itself) must miss the gate by WITNESS_MARGIN. The
+    float32 plain draws and a witness on the plain step run as one VJP of
+    their envs side by side (``tiled_vjp``). Returns (the largest |kernel -
+    plain|, the kernels' cotangents by K, of the first draw)."""
     import torch
 
     psim = plain_mpm_sim(sim)
@@ -2376,9 +2444,11 @@ def grad_gate(what, sim, state, action, steps, n_plain, zero, witness, draws=1):
     names = mpm_vjp_names(len(sim.sdf_names))
     hs, ha, hc = mpm_slice_envs(state, n_plain), action[:n_plain], [c[:n_plain] for c in cot]
     plain = checkpointed(psim)._step_plain
-    g32 = mpm_vjp(plain, hs, ha, hc)
-    if draws > 1:
-        g32 = Draws([g32] + [mpm_vjp(plain, hs, ha, hc) for _ in range(draws - 1)])
+    ws, wstep = witness(hs, psim)
+    tiled = [hs] * draws + ([ws] if wstep is None else [])
+    runs = tiled_vjp(plain, tiled, ha, hc)
+    g32 = runs[0] if draws == 1 else Draws(runs[:draws])
+    wit = runs[draws] if wstep is None else mpm_vjp(wstep, ws, ha, hc)
     g64 = mpm_vjp(plain, mpm_cast(hs, torch.float64), ha.double(), [c.double() for c in hc])
     # an input that the scene leaves untouched (a ground the material never
     # reaches) has a 0 cotangent in float64: it must be 0 in the kernel too
@@ -2394,8 +2464,6 @@ def grad_gate(what, sim, state, action, steps, n_plain, zero, witness, draws=1):
         err = max(err, per_env_gate(f"{what} K={K}", names,
                                     kernel[0] if draws == 1 else Draws(kernel), g32, g64,
                                     zero=tuple(zero) + tuple(found), gates=gates))
-    ws, wstep = witness(hs, psim)
-    wit = mpm_vjp(wstep, ws, ha, hc)
     ratios = {n: (w.double() - r).reshape(n_plain, -1).norm(dim=1).median().item() / gates[n]
               for n, w, r in zip(names, wit, g64) if gates.get(n, 0) > 0}
     log(f"[{what}] witness: median error vs float64 over the gate "
@@ -2406,12 +2474,31 @@ def grad_gate(what, sim, state, action, steps, n_plain, zero, witness, draws=1):
     return err, grads
 
 
-def no_stiffness(s, psim):
-    """The witness: the float32 plain step with mu = lamda = 0."""
+def tiled_vjp(step, states, action, cot):
+    """``mpm_vjp`` of ``step`` on each of ``states`` (MPM states of the same
+    envs, e.g. repeated draws and a witness) under the same action and
+    output cotangents, as one VJP of all their envs side by side: the plain
+    references' host dispatch paid once instead of once per state. Each
+    env's cotangents are its own (no env reaches another's), and the
+    scatter's float atomics round each copy in its own order, as separate
+    runs do. Returns one list of cotangents per state."""
     import torch
 
-    return (s.replace(mu=torch.zeros_like(s.mu), lamda=torch.zeros_like(s.lamda)),
-            checkpointed(psim)._step_plain)
+    from unidom_torch.ops.gradops import tree_flatten
+
+    n = len(states)
+    flat = [tree_flatten(s)[0] for s in states]
+    state = tree_flatten(states[0])[1]([torch.cat(ts) for ts in zip(*flat)])
+    grads = mpm_vjp(step, state, torch.cat([action] * n), [torch.cat([c] * n) for c in cot])
+    B = action.shape[0]
+    return [[g[i * B:(i + 1) * B] for g in grads] for i in range(n)]
+
+
+def no_stiffness(s, psim):
+    """The witness: the float32 plain step (None) with mu = lamda = 0."""
+    import torch
+
+    return s.replace(mu=torch.zeros_like(s.mu), lamda=torch.zeros_like(s.lamda)), None
 
 
 def counts():
@@ -2642,7 +2729,6 @@ def big_grad_phases(dev):
     torch.cuda.empty_cache()
     # one update's policy gradient through the kernels against the plain step
     genv = make_env("shape_elasto_plastic", batch_size=B_POLICY_GRAD, device=dev)
-    genv.PUSH_SUBSTEPS = POLICY_GRAD_CALLS
     k, p, r = mpm_policy_grads(genv, 0, checkpoint=True)
     policy_err = per_env_gate(f"big-policy-grad B={B_POLICY_GRAD}", ["policy"], [k], [p], [r])
     if (r.norm(dim=1) == 0).any():
@@ -2871,7 +2957,7 @@ def k2_bwd_inputs(sim, s, a, K):
     return fields, frame, vw, hist, cot
 
 
-def k2_design_phase(dev):
+def k2_design_phase(dev, plain_refs=None):
     """[k2-design]: K2-fwd's launch as fwd_launch_config picks it and
     K2-bwd's as launch_config picks it, on shape_rope at B_SHAPE_ROPE envs:
     registers, local memory, shared memory per CTA, CTAs per cluster, CTAs
@@ -2887,7 +2973,9 @@ def k2_design_phase(dev):
     t_phase = time.perf_counter()
     device = torch.cuda.current_device()
 
-    refs = {}  # the plain steps (float32, float64) per configuration and B
+    # (inputs, float32 and float64 plain steps) per configuration and B:
+    # [mpm-config]'s, reused where the inputs are the same
+    refs = dict(plain_refs or {})
 
     def timed_fwd(name, B, sim, s, a):
         conf = sim.conf
@@ -2899,12 +2987,12 @@ def k2_design_phase(dev):
             fields, frame, vw = mk._inputs(sim, prepared)
             ms = cuda_ms(lambda: mk._forward(sim, fields, frame, vw), reps=5,
                          warmup=1)
-            if (name, B) not in refs:
-                refs[(name, B)] = (sim._step_plain(s, a),
-                                   sim._step_plain(mpm_cast(s, torch.float64), a.double()))
+            ref = refs.get((name, B))
+            if ref is None or not (same_tree(ref[0], s) and torch.equal(ref[1], a)):
+                ref = refs[(name, B)] = (s, a, sim._step_plain(s, a),
+                                         sim._step_plain(mpm_cast(s, torch.float64), a.double()))
             out = mk._rebuild(prepared, mk._forward(sim, fields, frame, vw))
-            mpm_gate(f"k2-design K2-fwd {name} B={B} cluster of {cfg.cluster}", out,
-                     *refs[(name, B)])
+            mpm_gate(f"k2-design K2-fwd {name} B={B} cluster of {cfg.cluster}", out, *ref[2:])
             del out
             clocks = torch.zeros(6, dtype=torch.int64, device=dev)
             mk._forward(sim, fields, frame, vw, clocks=clocks)
@@ -3477,7 +3565,10 @@ B_PLB_K2_PLAIN = 64
 # pairs of scene and kernel that lost their gate.)
 PLB_FWD_SCENES = ("plb_move", "plb_triplemove", "plb_writer", "plb_rollingpin",
                   "plb_chopsticks")
-PLB_BWD_SCENES = ("plb_writer", "plb_rollingpin", "plb_chopsticks")
+PLB_NEW_TOOLS = ("plb_writer", "plb_rollingpin", "plb_chopsticks")
+# the VJP gates: three spheres' summed adjoints (plb_triplemove) and each
+# other tool's
+PLB_BWD_SCENES = ("plb_triplemove",) + PLB_NEW_TOOLS
 # The VJP gates take each side's median over PLB_DRAWS runs (Draws, as
 # [mpm-bwd-parity] takes PARITY_DRAWS): on plb_triplemove at 16 envs one
 # run's per-env median swung 2.2x between three runs of the float32 plain
@@ -3970,7 +4061,7 @@ def plb_phases(dev, smi):
             f"{'not timed' if p_ms is None else f'{p_ms:.2f} ms'}, bound "
             f"{fb[0][0]:.4f} ms ({fb[0][1]}, {fb[3]:.1f} touched cells per env and substep); "
             f"final reward mean {reward.mean().item():.4f}; {smi}")
-        if scene in PLB_BWD_SCENES:
+        if scene in PLB_NEW_TOOLS:
             # the gradient's kernels at this scene's size, from the same state
             with torch.no_grad():
                 fields, frame, vw = mbk._big_inputs(sim, prepared, PLB_STRIDE)
@@ -4082,6 +4173,198 @@ def plb_phases(dev, smi):
     return paths, errs
 
 
+# ---- [dist]: data-parallel training over ranks (unidom_torch/parallel). Two
+# ranks share the one card through gloo (NCCL needs a card per rank): each
+# steps half of the global batch through the same kernels, and the update
+# must be the same on both and the serial recompute's: per shard the same
+# noise, nan_to_num, the local clip, the mean, Adam. Adam's first step is
+# -lr * g / (|g| + eps), +-lr per entry, so a gradient entry within the
+# kernels' rounding of 0 may step either way: as tests/test_torch_train.py
+# holds one update, entries whose serial gradient is clear of rounding
+# (DIST_CLEAR of the leaf's largest) within 1e-3 lr, every entry within
+# 2 lr.
+DIST_RANKS = 2
+DIST_ARMS = (("fold_cloth3", B_MAIN), ("whip_rope", 1024), ("shape_elasto_plastic", 2 * 8))
+DIST_CLEAR = 1e-2
+DIST_LR, DIST_MAX_NORM = 1e-4, 0.3
+
+
+def dist_rank(arms):
+    """One rank of [dist]: per (env, global envs) of ``arms``, one update of
+    its share from ``reset_batch``: the first state, the parameters after
+    it, the metrics, the launches and the seconds."""
+    import torch
+
+    from unidom_torch import make_env
+    from unidom_torch.algorithms.apg import build_apg
+    from unidom_torch.parallel import make_env_mesh
+
+    mesh = make_env_mesh()
+    out = []
+    for name, B in arms:
+        env = make_env(name, batch_size=B // mesh.size, device=mesh.device)
+        init_ts, minimize, reset_batch, _ = build_apg(env, EP_LEN, DIST_LR, DIST_MAX_NORM,
+                                                      device=mesh.device, mesh=mesh)
+        ts = init_ts(0)
+        state = reset_batch(torch.Generator().manual_seed(0))
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, m = minimize(ts, state)
+        torch.cuda.synchronize()
+        out.append({"state": state, "params": [p.detach() for p in ts.policy.parameters()],
+                    "metrics": {k: v.item() for k, v in m.items()}, "launches": counts(),
+                    "seconds": time.perf_counter() - t0})
+        del env, ts, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_phase(dev, smi):
+    """[dist]: fold_cloth3 (K1), whip_rope (K2) and shape_elasto_plastic (K3)
+    trained one update on DIST_RANKS ranks sharing the card (gloo), each
+    rank's parameters equal to the other's bit for bit and held to the
+    serial recompute on this card; the ranks' launches and seconds beside
+    one unsharded update's; and, beside the ranks, the CLI (``-m
+    unidom_torch.algorithms.apg``) at world size 1 over NCCL for one
+    iteration."""
+    import torch
+
+    from unidom_torch.parallel.launch import free_port
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    # the CLI at world size 1 (a process group of one over NCCL) runs beside
+    # the ranks: its checks follow theirs
+    logdir = ROOT / "build" / "chip_smoke_dist_cli"
+    shutil.rmtree(logdir, ignore_errors=True)
+    cmd = [sys.executable, "-m", "unidom_torch.algorithms.apg", "--env", "fold_cloth3",
+           "--ep_len", "1", "--num_envs", "64", "--max_it", "0", "--eval_freq", "1",
+           "--num_eval_envs", "4", "--num_processes", "1", "--process_id", "0",
+           "--coordinator", f"localhost:{free_port()}", "--logdir", str(logdir)]
+    cli = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True)
+    try:
+        dist_checks(dev, smi, t_phase)
+        out, err = cli.communicate(timeout=600)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.communicate()
+    for line in out.splitlines():
+        log(f"[dist] cli: {line}")
+    if cli.returncode != 0:
+        log(err[-4000:])
+        fail(f"[dist] the CLI at world size 1 exited with {cli.returncode}")
+    if "[mesh] nccl: 1 rank(s)" not in out:
+        fail("[dist] the CLI at world size 1 did not run over a process group of NCCL")
+    recs = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
+    check_history("dist cli", recs)
+    if [rec["it"] for rec in recs] != [0]:
+        fail(f"[dist] the CLI wrote {recs}")
+    log(f"[dist] CLI {' '.join(cmd[1:])}: exit 0, one iteration over NCCL at world size 1")
+    shutil.rmtree(logdir, ignore_errors=True)
+    log(f"[dist] {time.perf_counter() - t_phase:.2f} s")
+
+
+def dist_checks(dev, smi, t_phase):
+    """[dist]'s ranks and their checks (see dist_phase)."""
+    import torch
+
+    from unidom_torch import make_env
+    from unidom_torch.algorithms.apg import build_apg
+    from unidom_torch.ops.gradops import global_norm_clip, nan_to_num_tree
+    from unidom_torch.parallel import launch
+
+    ranks = launch(dist_rank, DIST_RANKS, "cuda", "gloo", args=(DIST_ARMS,))
+    log(f"[dist] {DIST_RANKS} ranks (gloo) on one card, the CLI's process beside them: "
+        f"{time.perf_counter() - t_phase:.2f} s from the launch to the last rank's exit")
+    for i, (name, B) in enumerate(DIST_ARMS):
+        outs = [r[i] for r in ranks]
+        b = B // DIST_RANKS
+        env = make_env(name, batch_size=b, device=dev)
+        calls = EP_LEN * getattr(env, "PUSH_SUBSTEPS", 1)
+        if name == "fold_cloth3":
+            expect = expected(K1_fwd=EP_LEN * ROBOT_STEPS, K1_bwd=EP_LEN * ROBOT_STEPS)
+        elif name == "whip_rope":
+            expect = expected(K2_fwd=calls, K2_bwd=calls, K2_seg=calls * segments(env, b))
+        else:
+            expect = expected(K3_fwd=calls, K3_bwd=calls, K3_seg=calls * segments(env, b))
+        for r, o in enumerate(outs):
+            log(f"[dist] {name} rank {r} of {DIST_RANKS}, {b} of {B} envs: launches "
+                f"{o['launches']} (expected {expect}); one update {o['seconds']:.4f} s; metrics "
+                f"{o['metrics']}")
+            if o["launches"] != expect:
+                fail(f"[dist] {name} rank {r} launched {o['launches']}")
+            if not all(math.isfinite(v) for v in o["metrics"].values()) or \
+                    not o["metrics"]["grad_norm"] > 0:
+                fail(f"[dist] {name} rank {r}: metrics {o['metrics']}")
+        same = all(torch.equal(p, q) for p, q in zip(outs[0]["params"], outs[1]["params"]))
+        if not same:
+            fail(f"[dist] {name}: the ranks' parameters differ after the update")
+        # the serial recompute on this card: each shard's gradient from the
+        # same noise, nan_to_num, the local clip, then the mean and Adam
+        init_ts, minimize, _, _ = build_apg(env, EP_LEN, DIST_LR, DIST_MAX_NORM, device=dev)
+        ts = init_ts(0)
+        noise = ts.generator.get_state()  # every shard draws from the same noise
+        grads = []
+        for o in outs:
+            ts.generator.set_state(noise)
+            _, g, _ = minimize.debug["loss_grad"](ts, dataclass_to(o["state"], dev))
+            grads.append(global_norm_clip(nan_to_num_tree(g), DIST_MAX_NORM))
+        mean = [sum(gs) / len(gs) for gs in zip(*grads)]
+        for p, g in zip(ts.policy.parameters(), mean):
+            p.grad = g
+        ts.optimizer.step()
+        worst_clear, worst = 0.0, 0.0
+        for p, q, g in zip(outs[0]["params"], ts.policy.parameters(), mean):
+            d = (p.to(dev) - q.detach()).abs()
+            clear = g.abs() > DIST_CLEAR * g.abs().max()
+            worst_clear = max(worst_clear, d[clear].max().item() if clear.any() else 0.0)
+            worst = max(worst, d.max().item())
+        log(f"[dist] {name}: the ranks' parameters equal bit for bit; against the serial "
+            f"recompute: largest difference {worst_clear:.3e} where the gradient is clear of "
+            f"rounding (gate {1e-3 * DIST_LR:.1e}), {worst:.3e} anywhere (gate "
+            f"{2 * DIST_LR * (1 + 1e-3):.1e})")
+        if worst_clear > 1e-3 * DIST_LR or worst > 2 * DIST_LR * (1 + 1e-3):
+            fail(f"[dist] {name}: the sharded update is not the serial recompute's")
+        # one unsharded update of the global batch, for its env-steps/s
+        genv = make_env(name, batch_size=B, device=dev)
+        init_g, min_g, reset_g, _ = build_apg(genv, EP_LEN, DIST_LR, DIST_MAX_NORM, device=dev)
+        tsg, sg = init_g(0), reset_g(torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        min_g(tsg, sg)
+        torch.cuda.synchronize()
+        unsharded = time.perf_counter() - t0
+        sharded = max(o["seconds"] for o in outs)
+        log(f"[dist] {name} at {B} global envs, ep_len {EP_LEN}: {EP_LEN * B / sharded:.2f} "
+            f"env-steps/s over {DIST_RANKS} ranks sharing the card (the slower rank's update, "
+            f"{sharded:.4f} s), {EP_LEN * B / unsharded:.2f} unsharded in one process "
+            f"({unsharded:.4f} s); {smi}")
+        del env, genv, tsg, sg, ts, grads, mean, outs
+        torch.cuda.empty_cache()
+    del ranks
+
+
+def same_tree(a, b):
+    """Whether two states (trees of dataclasses) hold equal tensors."""
+    import torch
+
+    from unidom_torch.ops.gradops import tree_flatten
+
+    la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def dataclass_to(state, dev):
+    """``state`` (a tree of dataclasses) with every tensor on ``dev``."""
+    from unidom_torch.ops.gradops import tree_flatten
+
+    leaves, rebuild = tree_flatten(state)
+    return rebuild([t.to(dev) for t in leaves])
+
+
 def main():
     import torch
 
@@ -4142,7 +4425,7 @@ def main():
     mark("device and build")
 
     # ---- the MPM paths (phases 11-15, see mpm_phases; 16-21, mpm_grad_phases)
-    mpm_entry, whip_k1, whip_k3 = mpm_phases(dev)
+    mpm_entry, whip_k1, whip_k3, plain_refs = mpm_phases(dev)
     torch.cuda.empty_cache()
     mark("mpm_phases")
     bwd_entry, seg_entry, whip_train_fwd = mpm_grad_phases(dev)
@@ -4163,7 +4446,8 @@ def main():
     torch.cuda.empty_cache()
     mark("big_grad_phases")
     # ---- the MPM backward kernels' design (see k2_design_phase, k3_design_phase)
-    k2_design_phase(dev)
+    k2_design_phase(dev, plain_refs)
+    del plain_refs
     k3_design_phase(dev)
     mark("k2_design_phase, k3_design_phase")
     # ---- the other DaXBench envs' training (see train_envs_phases)
@@ -4198,7 +4482,9 @@ def main():
         out_k = cloth_robot_step(sim, state, action)
         torch.cuda.synchronize()
         out_p = sim._robot_step_plain(state, action)
-        env64 = plain_copy(env, torch.float64)
+        # the float64 and float32 plain references of the replays below run
+        # through CUDA graphs: the same kernels, without the host's dispatch
+        env64 = graphed_plain_copy(env, torch.float64)
         out_64 = env64.simulator.step_batch(cast(state, torch.float64), action.double())
         errs = {}
         for name, floor in PARITY_FLOOR.items():
@@ -4261,7 +4547,7 @@ def main():
 
         # kernel vs plain: each macro step of a sampled rollout replayed from
         # the kernel's state, then the free-running deterministic episode
-        plain_env = plain_copy(env, torch.float32)
+        plain_env = graphed_plain_copy(env, torch.float32)
         _, sacts, srews = run_eval(policy, None, env, state0,
                                    generator=torch.Generator(device=dev).manual_seed(2))
         s = state0
@@ -4324,7 +4610,7 @@ def main():
         env_steps = env.max_steps * B_MAIN
         log(f"[time] rollout B={B_MAIN} ({env.max_steps} macro steps): "
             f"{env_steps / t_best:.1f} env-steps/s through the kernel "
-            f"(best of {[round(t, 4) for t in t_roll]} s); plain step "
+            f"(best of {[round(t, 4) for t in t_roll]} s); plain step through a CUDA graph "
             f"{env_steps / t_plain_rollout:.1f} env-steps/s ({t_plain_rollout:.3f} s)")
         profile_device(f"run_eval B={B_MAIN}",
                        lambda: run_eval(policy, None, env, state0, deterministic=True))
@@ -4568,6 +4854,10 @@ def main():
         torch.cuda.empty_cache()
     log(f"[time] phase 10 in {time.perf_counter() - t_phase:.2f} s")
     mark("phases 7-10 (cloth training, minimize, policy gradient, K1-bwd times)")
+
+    # ---- [dist]: data-parallel training over ranks (see dist_phase)
+    dist_phase(dev, smi)
+    mark("dist_phase")
 
     # The script's seconds by phase beside the plain robot step's time: the
     # plain references run on the card but wait on its host, whose speed

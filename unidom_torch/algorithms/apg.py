@@ -1,15 +1,20 @@
 """Analytic policy gradients (APG): BPTT through the differentiable simulator.
 
-Counterpart of ``unidom_tpu/algorithms/apg.py`` on one device:
+Counterpart of ``unidom_tpu/algorithms/apg.py``:
 - policy = MLP [512, 256, 2*act] with swish + NormalTanh sampling (+ sigmoid
   squash for cloth envs);
 - loss = -mean(reward) over a rollout of ``episode_length`` macro steps, with
   optional stop-gradient truncation windows and a pre-squash penalty;
-- grad -> nan_to_num -> global-norm clip -> (all-reduce: the identity on one
-  device) -> Adam, in exactly that order;
+- grad -> nan_to_num -> global-norm clip on each rank -> mean all-reduce over
+  the ranks -> Adam, in exactly that order;
+- data parallel over an ``EnvMesh`` (``unidom_torch/parallel``): each rank
+  steps ``num_envs // world`` envs and holds a replica of the training
+  state, as JAX's ``shard_map`` over ``Mesh(('env',))`` does;
 - ``train`` and the CLI (``python -m unidom_torch.algorithms.apg``): fixed
   reset for cloth envs, periodic sampled and deterministic eval, per-eval and
-  best checkpoints with ``torch.save``, resume, ``metrics.jsonl``.
+  best checkpoints with ``torch.save``, resume, ``metrics.jsonl``; with
+  ``--devices N`` it starts N ranks on this host, with ``--coordinator``,
+  ``--num_processes`` and ``--process_id`` it is one rank of a group.
 
 On CUDA tensors every robot step of a cloth rollout runs the cloth kernel
 forward and, in the backward pass, the cloth kernel backward; every macro
@@ -27,6 +32,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from unidom_torch.models.distribution import NormalTanhDistribution
 from unidom_torch.models.mlp import PolicyMLP
@@ -36,7 +42,14 @@ from unidom_torch.models.normalizer import (
     normalize,
     update_normalizer,
 )
-from unidom_torch.ops.gradops import global_norm, global_norm_clip, nan_to_num_tree, tree_flatten
+from unidom_torch.ops.gradops import (
+    global_norm,
+    global_norm_clip,
+    nan_to_num_tree,
+    pmean_tree,
+    tree_flatten,
+)
+from unidom_torch.parallel import EnvMesh, launch, make_env_mesh
 
 ADAM = dict(betas=(0.9, 0.999), eps=1e-8)  # optax.adam's defaults
 LR_END = 1e-5  # end of the linear learning-rate decay
@@ -68,6 +81,20 @@ def _act(policy, normalizer, env, state, dist, eps):
 def _noise(generator, env, state):
     return torch.randn((state.x.shape[0], env.action_size), generator=generator,
                        device=state.x.device, dtype=state.x.dtype)
+
+
+def tile_over_ranks(state, n):
+    """``state`` with every tensor leaf repeated ``n`` times along the batch:
+    the global batch of ``n`` ranks that each hold ``state``."""
+    leaves, rebuild = tree_flatten(state)
+    return rebuild([torch.cat([t] * n) for t in leaves])
+
+
+def rank_slice(state, mesh):
+    """This rank's envs of a global batch ``state``."""
+    leaves, rebuild = tree_flatten(state)
+    B = leaves[0].shape[0] // mesh.size
+    return rebuild([t[mesh.rank * B:(mesh.rank + 1) * B] for t in leaves])
 
 
 def _stop_gradient(state):
@@ -105,13 +132,18 @@ def build_apg(
     normalize_obs: bool = False,
     pre_squash_penalty: float = 0.0,
     device="cuda",
+    mesh: Optional[EnvMesh] = None,
 ):
     """Build (init_training_state, minimize, reset_batch, run_eval) for
     ``env``, which must live on ``device``; the policy, the optimizer state
-    and the normalizer are made there too."""
+    and the normalizer are made there too. With a ``mesh`` (``EnvMesh``),
+    ``env`` holds this rank's share of the batch, and ``minimize`` takes this
+    rank's share of the first state and returns the same training state on
+    every rank."""
     if torch.device(device).type != env.device.type:
         raise ValueError(f"env is on {env.device}, but build_apg was asked for {device}")
     device = env.device
+    mesh = mesh or EnvMesh(1, 0, device)
     dist = NormalTanhDistribution(event_size=env.action_size)
 
     def learning_rate_at(updates):
@@ -157,20 +189,25 @@ def build_apg(
         return loss.detach(), grads, (rewards.detach(), states)
 
     def minimize(ts, state, noise=None):
-        """One APG update from the first state ``state``; updates ``ts`` in
-        place and returns (ts, metrics)."""
+        """One APG update from this rank's first state ``state``; updates
+        ``ts`` in place and returns (ts, metrics). Every rank draws the same
+        noise (``ts.generator`` is seeded alike) for its own envs, clips its
+        own gradient, and takes the mean over the ranks of the clipped
+        gradients, as JAX's replicated key and ``pmean`` after the local clip
+        do. ``reward`` and ``reward_sum`` are means over the ranks;
+        ``grad_norm`` is this rank's raw norm (JAX reports shard 0's)."""
         loss, grad_raw, (rewards, states) = loss_grad(ts, state, noise)
         minimize.debug["last"] = (loss, grad_raw)
         grad_raw = nan_to_num_tree(grad_raw)
         grad = global_norm_clip(grad_raw, max_gradient_norm)
-        # the all-reduce of the clipped gradient is the identity on one device
+        grad = pmean_tree(grad, mesh)
 
         if normalize_obs:
             # the reset obs is what the policy sees at t = 0: fold it in with
             # the post-step states
             with torch.no_grad():
                 obs = torch.stack([env.get_obs(s) for s in [state, *states]])
-                ts.normalizer = update_normalizer(ts.normalizer, obs)
+                ts.normalizer = update_normalizer(ts.normalizer, obs, mesh)
 
         params = list(ts.policy.parameters())
         for p, g in zip(params, grad):
@@ -180,11 +217,12 @@ def build_apg(
         ts.optimizer.step()
         ts.updates += 1
         with torch.no_grad():
+            reward, reward_sum = pmean_tree([rewards.mean(), rewards.sum(0).mean()], mesh)
             metrics = {
                 "grad_norm": global_norm(grad_raw),
                 "params_norm": global_norm(params),
-                "reward": rewards.mean(),
-                "reward_sum": rewards.sum(0).mean(),
+                "reward": reward,
+                "reward_sum": reward_sum,
             }
         return ts, metrics
 
@@ -193,16 +231,33 @@ def build_apg(
     minimize.debug = {"loss_grad": loss_grad, "learning_rate_at": learning_rate_at}
 
     def reset_batch(generator=None):
-        """First state of an iteration: ``env.reset(generator)`` for
-        ``reset_mode == "reset"`` envs (cloth) and ``"host_reset"`` envs (the
-        shape_rope family, whose reset pushes run forward on the env's batch;
-        with one device JAX's tiling over devices is the identity),
-        ``env.auto_reset`` of the env's initial state for ``"auto_reset"``
-        envs (whip_rope, pour_water, pour_soup)."""
-        if env.reset_mode in ("reset", "host_reset"):
+        """This rank's first state of an iteration, laid out as JAX's global
+        batch over the mesh:
+        - ``"reset"`` envs (cloth): ``env.reset(generator)``; over several
+          ranks the generator gives one seed per rank (JAX splits its key
+          over the devices) and rank r resets from its own;
+        - ``"host_reset"`` envs (the shape_rope family, whose reset pushes
+          run forward on the env's batch): one ``env.reset(generator)``,
+          the same on every rank (JAX tiles one local reset);
+        - ``"auto_reset"`` envs (whip_rope, pour_water, pour_soup):
+          ``env.auto_reset`` of the initial state tiled over the ranks, one
+          draw per global env; rank r takes its envs.
+        Over several ranks every rank must give a generator in the same
+        state."""
+        n = mesh.size
+        if n > 1 and generator is None and env.reset_mode != "host_reset":
+            raise ValueError("reset_batch over several ranks needs a generator")
+        if env.reset_mode == "reset":
+            if n > 1:
+                seeds = torch.randint(2**62, (n,), generator=generator)
+                generator = torch.Generator().manual_seed(int(seeds[mesh.rank]))
+            return env.reset(generator)[1]
+        if env.reset_mode == "host_reset":
             return env.reset(generator)[1]
         if env.reset_mode == "auto_reset":
-            return env.auto_reset(env.init_state, generator)
+            if n == 1:
+                return env.auto_reset(env.init_state, generator)
+            return rank_slice(env.auto_reset(tile_over_ranks(env.init_state, n), generator), mesh)
         raise NotImplementedError(f"reset_mode {env.reset_mode!r}")
 
     return init_training_state, minimize, reset_batch, run_eval
@@ -238,6 +293,12 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _train_rank(kwargs):
+    """One rank of a launched ``train``: its final checkpoint and history."""
+    ts, history = train(**kwargs)
+    return _checkpoint(ts, kwargs["max_it"]), history
+
+
 def train(
     env_name: str,
     episode_length: int,
@@ -248,6 +309,7 @@ def train(
     seed: int = 0,
     eval_freq: int = 20,
     num_eval_envs: int = 20,
+    num_devices: Optional[int] = None,
     truncation_length: Optional[int] = None,
     logdir: Optional[str] = None,
     resume: Optional[str] = None,
@@ -258,10 +320,30 @@ def train(
     aux_reward: bool = True,
     env_kwargs: Optional[dict] = None,
     device="cuda",
+    dist_backend: Optional[str] = None,
 ):
     """APG training of ``env_name`` for ``max_it + 1`` iterations. Returns
-    (training state, list of per-iteration metric records)."""
+    (training state, list of per-iteration metric records).
+
+    The ``num_envs`` envs are split over ``num_devices`` ranks (default: the
+    process group's, or one). With ``num_devices > 1`` and no process group,
+    ``train`` starts that many ranks on this host (``parallel.launch``,
+    ``dist_backend`` NCCL for CUDA and gloo for the CPU; gloo lets several
+    ranks share one card) and returns the lead rank's final checkpoint (a
+    dict, as ``apg_{env}_{it}.pt`` holds) and history. Every rank builds the
+    eval env (the shape_rope family's and the unfold envs' host draws share
+    its stream), but only the lead rank evaluates and writes
+    ``metrics.jsonl`` and checkpoints; ``resume`` is loaded on every rank."""
+    if num_devices is not None and num_devices > 1 and not tdist.is_initialized():
+        return launch(_train_rank, num_devices, device, dist_backend, args=(dict(locals()),))[0]
     from unidom_torch.envs.registration import env_functions
+
+    mesh = make_env_mesh(num_devices, device)
+    if num_envs % mesh.size:
+        raise ValueError(f"{num_envs} envs do not split over {mesh.size} ranks")
+    if mesh.group is not None and mesh.is_lead:
+        print(f"[mesh] {tdist.get_backend(mesh.group)}: {mesh.size} rank(s), "
+              f"{num_envs // mesh.size} envs each on {mesh.device}")
 
     logdir = logdir or (
         f"logs/apg/{env_name}/ep{episode_length}_env{num_envs}_lr{learning_rate}"
@@ -270,10 +352,10 @@ def train(
     os.makedirs(logdir, exist_ok=True)
 
     env_kwargs = env_kwargs or {}
-    env = env_functions[env_name](batch_size=num_envs, seed=seed, aux_reward=aux_reward,
-                                  device=device, **env_kwargs)
+    env = env_functions[env_name](batch_size=num_envs // mesh.size, seed=seed,
+                                  aux_reward=aux_reward, device=mesh.device, **env_kwargs)
     eval_env = env_functions[env_name](batch_size=num_eval_envs, seed=seed + 666,
-                                       device=device, **env_kwargs)
+                                       device=mesh.device, **env_kwargs)
     device = env.device
     if hasattr(env, "rng"):
         # JAX's resets draw on the host from numpy's global state (the
@@ -291,12 +373,13 @@ def train(
     init_ts, minimize, reset_batch, run_eval_ = build_apg(
         env, episode_length, learning_rate, max_gradient_norm, truncation_length,
         lr_decay_iters=max_it if lr_decay else None, normalize_obs=normalize_obs,
-        pre_squash_penalty=pre_squash_penalty, device=device,
+        pre_squash_penalty=pre_squash_penalty, device=device, mesh=mesh,
     )
     ts = init_ts(seed)
     if resume:
         ts = _restore(ts, resume, device)
-        print(f"resumed from {resume}")
+        if mesh.is_lead:
+            print(f"resumed from {resume}")
 
     # Cloth envs ("reset") keep one reset for every iteration (reference
     # parity) unless --randomize_reset; "auto_reset" and "host_reset" envs
@@ -306,13 +389,14 @@ def train(
     history = []
     best_eval = -float("inf")
     t_total = time.time()
-    with open(os.path.join(logdir, "metrics.jsonl"), "a") as metrics_file:
+    metrics_file = open(os.path.join(logdir, "metrics.jsonl"), "a") if mesh.is_lead else None
+    try:
         for it in range(max_it + 1):
             if fixed_reset:
                 reset_gen.manual_seed(seed)
             first_state = reset_batch(reset_gen)
 
-            if it % eval_freq == 0:
+            if it % eval_freq == 0 and mesh.is_lead:
                 normalizer = ts.normalizer if normalize_obs else None
                 eval_gen = torch.Generator(device=device).manual_seed(seed + 666)
                 _, _, rewards = run_eval_(ts.policy, normalizer, eval_env, eval_first_state,
@@ -345,12 +429,44 @@ def train(
                 "walltime": time.time() - t_total,
             }
             history.append(rec)
-            metrics_file.write(json.dumps(rec) + "\n")
-            metrics_file.flush()
-            if it % max(1, eval_freq // 4) == 0:
-                print(f"[it {it}] train_reward {rec['train_reward']:.4f} "
-                      f"grad_norm {rec['grad_norm']:.3f} sps {sps:.1f}")
+            if metrics_file is not None:
+                metrics_file.write(json.dumps(rec) + "\n")
+                metrics_file.flush()
+                if it % max(1, eval_freq // 4) == 0:
+                    print(f"[it {it}] train_reward {rec['train_reward']:.4f} "
+                          f"grad_norm {rec['grad_norm']:.3f} sps {sps:.1f}")
+    finally:
+        if metrics_file is not None:
+            metrics_file.close()
     return ts, history
+
+
+def add_distributed_args(parser):
+    """The CLI's data-parallel flags (``apg`` and ``apg_para``)."""
+    parser.add_argument("--devices", type=int, default=None,
+                        help="ranks to split the envs over (default: the process group's, or "
+                             "one); more than one, with no process group, starts them here")
+    parser.add_argument("--coordinator", default=None,
+                        help="host:port of rank 0, for a run of --num_processes processes")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
+    parser.add_argument("--dist_backend", default=None, choices=("nccl", "gloo"),
+                        help="default NCCL for CUDA, gloo for the CPU; gloo lets several "
+                             "ranks share one card")
+
+
+def run_distributed(args, fn, **kwargs):
+    """``fn(**kwargs)`` as one rank of the group the CLI's flags name (none:
+    a plain call), leaving the group when it returns."""
+    from unidom_torch.parallel import initialize_distributed
+
+    initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                           backend=args.dist_backend, device=args.device)
+    try:
+        return fn(**kwargs)
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
 
 
 def main(argv=None):
@@ -378,9 +494,11 @@ def main(argv=None):
                         help="draw a fresh reset every iteration for cloth envs")
     parser.add_argument("--device", default="cuda",
                         help="torch device; 'cpu' runs the plain simulator steps on the host")
+    add_distributed_args(parser)
     args = parser.parse_args(argv)
 
-    train(
+    run_distributed(
+        args, train,
         env_name=args.env,
         episode_length=args.ep_len,
         num_envs=args.num_envs,
@@ -390,6 +508,7 @@ def main(argv=None):
         seed=args.seed,
         eval_freq=args.eval_freq,
         num_eval_envs=args.num_eval_envs,
+        num_devices=args.devices,
         truncation_length=args.truncation_length,
         logdir=args.logdir,
         resume=args.resume,
@@ -399,6 +518,7 @@ def main(argv=None):
         pre_squash_penalty=args.pre_squash_penalty,
         aux_reward=not args.no_aux_reward,
         device=args.device,
+        dist_backend=args.dist_backend,
     )
 
 

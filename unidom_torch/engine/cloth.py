@@ -160,6 +160,7 @@ class ClothSimulator:
                                               conf.cell_size)
         self.link_code = torch.as_tensor(code, device=self.device)
         self.damping_factor = float(np.exp(np.float32(-conf.damping * conf.dt)))
+        self._gravity_dvs = {}
 
     # ------------------------------------------------------------------ #
     # layout helpers
@@ -219,7 +220,7 @@ class ClothSimulator:
         x, v = state.x, state.v
         mu = state.mu.view(-1, 1, 1)
 
-        v = v - x.new_tensor([0.0, conf.gravity * dt, 0.0])
+        v = v - self._gravity_dv(v.dtype)
 
         force = self._spring_force(x, state.stiffness)
         f0, f1, f2 = force.unbind(-1)
@@ -269,6 +270,17 @@ class ClothSimulator:
         ps0 = normalize_grad(ps0, scale, batch_dims=1)
         ps1 = normalize_grad(ps1, scale, batch_dims=1)
         return state.replace(x=x, v=v, primitive0=ps0, primitive1=ps1)
+
+    def _gravity_dv(self, dtype):
+        """(0, gravity dt, 0) in ``dtype`` on the device, made once per
+        dtype: a tensor made from the host each substep would copy and wait
+        for the stream."""
+        dv = self._gravity_dvs.get(dtype)
+        if dv is None:
+            dv = torch.tensor([0.0, self.conf.gravity * self.conf.dt, 0.0], dtype=dtype,
+                              device=self.device)
+            self._gravity_dvs[dtype] = dv
+        return dv
 
     def prepare_actions(self, action):
         """(B, 8) robot action -> per-substep (B, 4) actions for both grippers:

@@ -136,6 +136,7 @@ class MPMSimulator:
         self.grid_idx_3d = torch.as_tensor(idx, dtype=torch.int32, device=self.device)
         self.offsets = torch.as_tensor(_OFFSETS, dtype=torch.int32, device=self.device)
         self.res_t = torch.as_tensor(res, dtype=torch.int32, device=self.device)
+        self._consts = {}
 
     # ------------------------------------------------------------------ #
     # scene construction (host side)
@@ -171,9 +172,14 @@ class MPMSimulator:
             center = np.array([0.5, 0.01, 0.5])
             lower = -0.5 * size + center
             upper = 0.5 * size + center
-            coords = np.stack(np.indices((n_grid,) * 3), axis=-1) / n_grid
-            mask = np.all((coords <= upper) & (coords >= lower), axis=-1)
-            x_ = coords[mask] - center
+            # the lattice points i / n_grid in [lower, upper] on each axis, in
+            # the C order of np.indices((n_grid,) * 3): those of the whole
+            # lattice that the box holds, without making the whole lattice
+            axes = []
+            for d in range(3):
+                c = np.arange(n_grid) / n_grid
+                axes.append(c[(c <= upper[d]) & (c >= lower[d])])
+            x_ = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, 3) - center
             x_[:, [0, 2]] = x_[:, [0, 2]] @ rot.T
             x_ = x_ + init_pos
 
@@ -182,7 +188,13 @@ class MPMSimulator:
     def add_sphere(self, state, radius, init_pos, hardness=1.0, material=WATER, density=1.0):
         """Regular-grid sphere of particles."""
         n_grid = int(self.conf.n_grid * density)
-        coords = np.stack(np.indices((n_grid,) * 3), axis=-1) / n_grid - 0.5
+        # the lattice points i / n_grid - 0.5 within the radius, in the C
+        # order of np.indices((n_grid,) * 3), from the cube of indices that
+        # holds the sphere rather than the whole lattice
+        c = np.arange(n_grid) / n_grid - 0.5
+        near = np.flatnonzero(c * c <= radius * radius)
+        c = c[near[0]:near[-1] + 1] if len(near) else c[:0]
+        coords = np.stack(np.meshgrid(c, c, c, indexing="ij"), axis=-1)
         mask = (coords**2).sum(-1) <= radius * radius
         x_ = coords[mask] + np.asarray(init_pos, np.float64)
         return self._append_particles(state, x_.astype(np.float32), material, hardness)
@@ -337,6 +349,16 @@ class MPMSimulator:
     # one substep (plain)
     # ------------------------------------------------------------------ #
 
+    def _const(self, name, dtype):
+        """The step's constant vector ``name`` (gravity, the ground's normal
+        "up") in ``dtype`` on the device, made once per dtype: a tensor made
+        from the host every substep would copy and wait for the stream."""
+        key = (name, dtype)
+        if key not in self._consts:
+            value = self.conf.gravity if name == "gravity" else (0.0, 1.0, 0.0)
+            self._consts[key] = torch.tensor(value, dtype=dtype, device=self.device)
+        return self._consts[key]
+
     def _substep(self, f, state: MPMState):
         conf = self.conf
         res = conf.res
@@ -368,7 +390,7 @@ class MPMSimulator:
         F = torch.where(plastic[:, None, None], U @ (eye * sig[..., None]) @ Vh, F)
 
         # von-Mises plasticity, in log-sigma space
-        sig_vm = torch.maximum(sig, sig.new_tensor(0.05))
+        sig_vm = torch.maximum(sig, sig.new_full((), 0.05))
         eps = torch.log(sig_vm)
         eps_hat = eps - eps.mean(-1, keepdim=True)
         eps_hat_norm = torch.sqrt(torch.sum(eps_hat**2, -1, keepdim=True) + 1e-12)
@@ -414,7 +436,7 @@ class MPMSimulator:
         mass_mask = grid_m > 1e-10
         safe_m = torch.where(mass_mask, grid_m, torch.ones_like(grid_m))
         grid_v = torch.where(mass_mask[..., None], grid_v / safe_m[..., None], grid_v)
-        grid_v = grid_v + dt * torch.tensor(conf.gravity, dtype=dtype, device=dev)
+        grid_v = grid_v + dt * self._const("gravity", dtype)
 
         # the nodes' indices and positions in float32 whatever the state's
         # dtype, as unidom_tpu's step computes them: a float64 step is then
@@ -428,7 +450,7 @@ class MPMSimulator:
             grid_v = flat_v.reshape(grid_v.shape)
 
         # ground friction on the bottom 3 grid layers
-        normal = torch.tensor([0.0, 1.0, 0.0], dtype=dtype, device=dev)
+        normal = self._const("up", dtype)
         lin = grid_v[..., 1] + 1e-30
         vit = grid_v - lin[..., None] * normal - gidx * 1e-30
         lit = torch.sqrt(torch.sum((vit + 1e-12) ** 2, dim=-1))

@@ -19,8 +19,10 @@ def _truncated_normal(shape, std, generator=None):
     from ``generator``, so the draw depends only on the uniform stream."""
     lo = 0.5 * math.erfc(2.0 / math.sqrt(2.0))  # Phi(-2)
     u = torch.rand(shape, generator=generator, dtype=torch.float64)
-    z = torch.erfinv(2.0 * (lo + u * (1.0 - 2.0 * lo)) - 1.0) * math.sqrt(2.0)
-    return (z * std).float()
+    # erfinv(2 (lo + u (1 - 2 lo)) - 1) sqrt(2) std, in place: the same
+    # operations in the same order, without a temporary per step
+    z = u.mul_(1.0 - 2.0 * lo).add_(lo).mul_(2.0).sub_(1.0).erfinv_()
+    return z.mul_(math.sqrt(2.0)).mul_(std).float()
 
 
 class PolicyMLP(nn.Module):
@@ -28,8 +30,11 @@ class PolicyMLP(nn.Module):
                  device="cuda"):
         super().__init__()
         sizes = [obs_size, *hidden, param_size]
+        # skip_init: nn.Linear's own init (from the global stream) would be
+        # overwritten below
         self.layers = nn.ModuleList(
-            nn.Linear(i, o, device=device) for i, o in zip(sizes[:-1], sizes[1:])
+            nn.utils.skip_init(nn.Linear, i, o, device=device)
+            for i, o in zip(sizes[:-1], sizes[1:])
         )
         with torch.no_grad():
             for layer in self.layers:

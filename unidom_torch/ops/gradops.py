@@ -12,6 +12,7 @@ with JAX's gradient.
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 
 def clip(x, lo, hi):
@@ -78,6 +79,21 @@ def global_norm_clip(tree, max_norm):
     g_norm = global_norm(tree)
     trigger = g_norm < max_norm
     return _map(lambda t: torch.where(trigger, t, t / g_norm * max_norm), tree)
+
+
+def pmean_tree(tree, mesh=None):
+    """The mean of ``tree`` over the ranks of ``mesh`` (an ``EnvMesh``),
+    ``jax.lax.pmean(tree, "env")``: every leaf in one flat buffer, one
+    all-reduce of the sum, divided by the world size. The tree as it is when
+    the mesh has no process group."""
+    if mesh is None or mesh.group is None:
+        return tree
+    leaves = _leaves(tree)
+    flat = torch.cat([t.reshape(-1) for t in leaves])
+    dist.all_reduce(flat, group=mesh.group)
+    flat = flat / mesh.size
+    parts = iter(torch.split(flat, [t.numel() for t in leaves]))
+    return _map(lambda t: next(parts).view_as(t), tree)
 
 
 def tree_flatten(tree):

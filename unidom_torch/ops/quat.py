@@ -37,7 +37,7 @@ def w2quat(axis_angle):
 
 def qinv(q):
     """Conjugate of a unit quaternion (renormalised)."""
-    conj = q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    conj = torch.cat([q[..., :1], -q[..., 1:]], dim=-1)  # q * (1, -1, -1, -1), exactly
     return conj / (_norm(conj) + 1e-12)
 
 
